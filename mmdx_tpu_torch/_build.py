@@ -1,0 +1,128 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Every ``mmdx_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, which is loaded
+with ``ctypes``. The library is built at first use into
+``mmdx_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of the
+sources, so an edited source rebuilds and a fresh checkout builds by itself.
+
+Each entry point enqueues one kernel on the stream it is given and returns
+the launch's ``cudaError_t``; :func:`check` turns a nonzero code into an
+exception. There is no fallback: a failed build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # A, B, bias, resid, C, M, N, K, epilogue, stream
+    "mmdx_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # y, gamma, beta, out, M, H, eps, stream
+    "mmdx_layernorm_f32_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # x, scale, out, M, D, eps, stream
+    "mmdx_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    # qkv, kmask, ctx, B, L, H, heads, scale, stream
+    "mmdx_bert_attn": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, kv, mask, bias, acc, m, l, B, nb, K, heads, head_dim, stream
+    "mmdx_beam_attn_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, ck, cv, enc_bias, ctx, N, KK, heads, d, stream
+    "mmdx_t5_cross_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+# GEMM epilogues (csrc/gemm.cu enum Epilogue)
+EPI_BF16 = 0
+EPI_BIAS_BF16 = 1
+EPI_BIAS_GELU_BF16 = 2
+EPI_BIAS_RESID_F32 = 3
+EPI_RELU_BF16 = 4
+EPI_RESID_BF16 = 5
+
+_LIB = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                           "kernels are built from mmdx_tpu_torch/csrc")
+    return found
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hash-keyed shared library; return its path."""
+    so = BUILD_DIR / f"libmmdx_kernels_{source_hash()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
+    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp)]
+    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device, as a raw pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``, 16-byte aligned for the kernels' vector loads."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer is not 16-byte aligned")

@@ -1,0 +1,55 @@
+"""The flagship model: image tower + text tower + late fusion + report decoder.
+
+Port of ``mmdx_tpu/models/diagnosis.py`` (``classify`` ``:45``,
+``prepare_generation`` / ``decode_step_beam`` ``:83-95``). ``kernels=True``
+routes the text tower and the decode step through the hand-written kernels
+(fast mode); ``kernels=False`` runs their plain versions (parity mode).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mmdx_tpu.config import DiagnosisConfig
+from mmdx_tpu_torch.models.bert import TextEncoder
+from mmdx_tpu_torch.models.fusion import FusionModel
+from mmdx_tpu_torch.models.resnet import ImageEncoder
+
+
+class DiagnosisModel(nn.Module):
+    def __init__(self, config: DiagnosisConfig, t5_encoder_layers: int = 0,
+                 bert_pooler: bool = True):
+        super().__init__()
+        self.config = config
+        self.image_encoder = ImageEncoder(config.image)
+        self.text_encoder = TextEncoder(config.text, pooler=bert_pooler)
+        self.fusion = FusionModel(config.fusion, config.report, t5_encoder_layers)
+
+    def classify(self, images, input_ids, attention_mask, token_type_ids=None,
+                 kernels: bool = False):
+        """Preprocessed NHWC images + token ids -> (probs [B, 13] f32, z_img,
+        z_txt)."""
+        z_img = self.image_encoder.encode(images)
+        z_txt = self.text_encoder.encode(input_ids, attention_mask, token_type_ids,
+                                         kernels)
+        logits = self.fusion.disease_head(self.fusion.fuse(z_img, z_txt))
+        return torch.sigmoid(logits.to(torch.float32)), z_img, z_txt
+
+    def prepare_generation(self, z_img, z_txt, max_len: int, beam_width: int) -> dict:
+        return self.fusion.cond_and_cache(z_img, z_txt, max_len, beam_width)
+
+    def decode_step_beam(self, token_ids, pos: int, cache, anc, static_kv,
+                         self_bias, enc_mask, kernels: bool = False):
+        return self.fusion.report_model.decode_step_beam(
+            token_ids, pos, cache, anc, static_kv, self_bias, enc_mask, kernels)
+
+    def cast_(self, dtype: torch.dtype) -> "DiagnosisModel":
+        """Cast the weights to the compute dtype in place, except the modules
+        marked ``keep_f32`` (T5 RMSNorm scales and relative-bias tables, f32
+        in the JAX package whatever the compute dtype)."""
+        for mod in self.modules():
+            if getattr(mod, "keep_f32", False):
+                continue
+            for name, p in mod.named_parameters(recurse=False):
+                p.data = p.data.to(dtype)
+        return self

@@ -1,0 +1,226 @@
+"""InferenceEngine: batched classification and beam-4 report generation.
+
+Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
+(``prep_images``, ``prep_texts``, ``classify_batch``, ``generate_report_ids``,
+``generate_reports``, ``infer``, ``result_dict``) and two modes:
+
+* ``parity`` — f32 weights and math, host-exact PIL-equivalent
+  preprocessing, the plain PyTorch version of every op; TF32 is switched off
+  for matmuls and cuDNN convolutions;
+* ``fast`` — bf16 towers, on-device resize + crop + normalize, and the four
+  hand-written kernels: the BERT attention block and FFN block in the text
+  tower, the beam self-attention partials (deferred cache writes) and the T5
+  cross-attention + FFN half-step in the decode step. The kernels are chosen
+  by the mode alone; on CPU tensors their wrappers run the plain versions.
+
+``turbo`` (int8 image tower) and multi-device serving are not ported yet
+(ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from mmdx_tpu.config import GenerationConfig
+from mmdx_tpu_torch.checkpoints.bridge import TorchBundle
+from mmdx_tpu_torch.decode.beam_search import (beam_expand, beam_search,
+                                               make_generation_kwargs)
+from mmdx_tpu_torch.ops.preprocess import preprocess_batch_device, preprocess_exact
+
+
+def bucket_ladder(max_len: int) -> tuple[int, ...]:
+    """Fast-mode token-length buckets below ``max_len`` (1/3, 1/2, 2/3 of it,
+    rounded up to a multiple of 8); MMDX_TEXT_BUCKETS overrides, as in
+    ``mmdx_tpu.runtime.engine.bucket_ladder``."""
+    raw = os.environ.get("MMDX_TEXT_BUCKETS", "")
+    if raw:
+        return tuple(sorted({int(x) for x in raw.split(",")
+                             if x.strip() and 0 < int(x) < max_len}))
+    steps = {min(max_len, max(8, -(-int(max_len * f) // 8) * 8))
+             for f in (1 / 3, 1 / 2, 2 / 3)}
+    return tuple(s for s in sorted(steps) if s < max_len)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device asked for, else the first CUDA card. Without a card there
+    is no quiet CPU default: a caller that wants the plain versions on the
+    CPU asks for ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the engine runs on a CUDA card; pass "
+                           "device='cpu' to run every op's plain version on the CPU")
+    return torch.device("cuda", 0)
+
+
+class InferenceEngine:
+    def __init__(self, bundle: TorchBundle, mode: str = "parity",
+                 canonical_size: int = 512, device=None, mesh=None):
+        if mode == "turbo":
+            raise NotImplementedError(
+                "turbo mode (int8 image tower + int8 text kernels) is not ported "
+                "to PyTorch yet: ROADMAP Queue 1, 'Turbo image tower'")
+        if mode not in ("parity", "fast"):
+            raise ValueError(f"unknown engine mode {mode!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device serving is not ported yet: ROADMAP Queue 1, "
+                "'Multi-device'")
+        self.bundle = bundle
+        self.mode = mode
+        self.kernels = mode == "fast"
+        self.canonical_size = canonical_size
+        self.device = resolve_device(device)
+        self.dtype = torch.float32 if mode == "parity" else torch.bfloat16
+        if mode == "parity":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        model = copy.deepcopy(bundle.model).to(self.device)
+        self.model = model.cast_(self.dtype).eval()
+        self.bert_tok, self.t5_tok = bundle.tokenizers()
+        self.thresholds = np.asarray(bundle.thresholds, np.float32)
+
+    # ------------------------------------------------------------------
+    # host-side input prep
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _decode(images) -> list[np.ndarray]:
+        """uint8 ndarrays pass through; anything else (bytes, PIL images)
+        goes through mmdx_tpu.io.images, imported only then (it needs PIL)."""
+        images = list(images)
+        if all(isinstance(a, np.ndarray) and a.dtype == np.uint8 for a in images):
+            return images
+        from mmdx_tpu.io.images import decode_images
+
+        return decode_images(images)
+
+    def prep_images(self, images) -> np.ndarray:
+        """parity: host-exact preprocessing -> [B, S, S, 3] float32;
+        fast: uint8 [B, H, W, ch] (preprocessing runs on the device)."""
+        cfg = self.bundle.config.image
+        arrays = self._decode(images)
+        if self.mode == "parity":
+            return np.stack([preprocess_exact(a, cfg.img_size, cfg.resize_size,
+                                              cfg.mean, cfg.std) for a in arrays])
+        # one raw shape: the device resize keeps the exact shorter-side +
+        # center-crop geometry; mixed shapes are first made square on the host
+        # so they stack. (The JAX engine also caps the distinct raw shapes to
+        # bound XLA recompiles; eager PyTorch compiles nothing per shape.)
+        if len({a.shape[:2] for a in arrays}) == 1:
+            canon = [a[:, :, None] if a.ndim == 2 else a for a in arrays]
+        else:
+            from mmdx_tpu.io.images import to_canonical_u8
+
+            canon = [to_canonical_u8(a, self.canonical_size) for a in arrays]
+        if max(c.shape[-1] for c in canon) == 3:
+            canon = [np.repeat(c, 3, -1) if c.shape[-1] == 1 else c for c in canon]
+        return np.stack(canon)
+
+    def prep_texts(self, texts: list[str], fixed_len: bool = False) -> dict[str, np.ndarray]:
+        """Tokenize to max_len (parity); fast mode pads to the smallest
+        bucket covering the batch unless ``fixed_len``."""
+        max_len = self.bundle.config.text.max_len
+        enc = self.bert_tok.encode_batch(texts, max_len=max_len)
+        if self.mode == "fast" and not fixed_len:
+            longest = int(enc["attention_mask"].sum(axis=1).max(initial=1))
+            for bucket in bucket_ladder(max_len):
+                if bucket >= longest:
+                    return {k: v[:, :bucket] for k, v in enc.items()}
+        return enc
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def classify_batch(self, images, texts: list[str], pad_to: int | None = None,
+                       host_outputs: bool = False):
+        """-> (probs [B, 13] np.float32, z_img, z_txt).
+
+        ``pad_to`` pads the batch (repeating the last row) with fixed-length
+        tokenization, as the bucketed serving path does; ``host_outputs``
+        returns z_img/z_txt as numpy f32 (the micro-batcher asks for that);
+        otherwise they stay tensors on the device."""
+        imgs = self.prep_images(images)
+        tok = self.prep_texts(texts, fixed_len=pad_to is not None)
+        n0 = int(imgs.shape[0])
+        ids, mask, tt = tok["input_ids"], tok["attention_mask"], tok["token_type_ids"]
+        if pad_to is not None and pad_to > n0:
+            k = pad_to - n0
+
+            def _pad(a):
+                return np.concatenate([a, np.repeat(a[-1:], k, axis=0)])
+
+            imgs, ids, mask, tt = _pad(imgs), _pad(ids), _pad(mask), _pad(tt)
+        x = self._tensor(imgs)
+        cfg = self.bundle.config.image
+        if x.dtype == torch.uint8:
+            x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size, cfg.mean,
+                                        cfg.std, out_dtype=self.dtype)
+        else:
+            x = x.to(self.dtype)
+        with torch.inference_mode():
+            probs, z_img, z_txt = self.model.classify(
+                x, self._tensor(ids).long(), self._tensor(mask).long(),
+                self._tensor(tt).long(), kernels=self.kernels)
+        probs = probs.cpu().numpy()[:n0]
+        z_img, z_txt = z_img[:n0], z_txt[:n0]
+        if host_outputs:  # numpy f32 (exact for bf16), as the batcher concatenates
+            z_img, z_txt = (z.float().cpu().numpy() for z in (z_img, z_txt))
+        return probs, z_img, z_txt
+
+    @torch.inference_mode()
+    def generate_report_ids(self, z_img, z_txt, gen: GenerationConfig | None = None,
+                            greedy: bool = False) -> np.ndarray:
+        """Beam-search report token ids [B, 1+max_new_tokens] (HF ``generate``
+        layout: leading decoder_start, pad/eos fill past the finish)."""
+        if greedy:
+            raise NotImplementedError("greedy decode is not ported yet: ROADMAP "
+                                      "Queue 1, 'Greedy decode'")
+        gen = gen or self.bundle.config.generation
+        z_img = torch.as_tensor(z_img).to(self.device, self.dtype)
+        z_txt = torch.as_tensor(z_txt).to(self.device, self.dtype)
+        b, nb = int(z_img.shape[0]), gen.num_beams
+        lmax = 1 + gen.max_new_tokens
+        prep = self.model.prepare_generation(beam_expand(z_img, nb),
+                                             beam_expand(z_txt, nb), lmax, nb)
+        cache, static_kv = prep["cache"], prep["static_kv"]
+        self_bias, enc_mask = prep["self_bias"], prep["enc_mask"]
+
+        def step_fn(tokens, pos, anc):
+            return self.model.decode_step_beam(tokens, pos, cache, anc, static_kv,
+                                               self_bias, enc_mask, kernels=self.kernels)
+
+        seqs, _ = beam_search(step_fn, batch=b,
+                              vocab_size=self.bundle.config.report.vocab_size,
+                              device=self.device, **make_generation_kwargs(gen))
+        return seqs.cpu().numpy()
+
+    def generate_reports(self, z_img, z_txt, gen: GenerationConfig | None = None,
+                         greedy: bool = False) -> list[str]:
+        seqs = self.generate_report_ids(z_img, z_txt, gen, greedy=greedy)
+        return self.t5_tok.batch_decode(seqs, skip_special_tokens=True)
+
+    def infer(self, image, patient_details: str, gen_kwargs: dict | None = None,
+              generate: bool = True, greedy: bool = False) -> dict:
+        """Single-sample inference with the reference's output contract."""
+        gen = self.bundle.config.generation
+        if gen_kwargs:
+            gen = dataclasses.replace(gen, **gen_kwargs)
+        probs, z_img, z_txt = self.classify_batch([image], [patient_details])
+        report = self.generate_reports(z_img, z_txt, gen, greedy=greedy)[0] if generate else ""
+        return self.result_dict(probs[0], report)
+
+    def result_dict(self, probs_row, report_text: str) -> dict:
+        return {
+            "report_text": report_text,
+            "disease_probs": {name: float(probs_row[j])
+                              for j, name in enumerate(self.bundle.class_names)},
+            "disease_vector": (probs_row >= self.thresholds).astype(int).tolist(),
+            "model_version": self.bundle.version,
+        }

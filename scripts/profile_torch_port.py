@@ -1,0 +1,124 @@
+#!/usr/bin/env python
+"""Steady-state timing and a torch.profiler breakdown of the PyTorch port's
+fast path (mmdx_tpu_torch) on one CUDA card.
+
+    python3 scripts/profile_torch_port.py
+
+Full-width random weights (seed 0, as chip_smoke.py), fast mode, 256x256x3
+uint8 images and fixed 96-token text (``pad_to``):
+
+  1. for B in 1, 4, 32: ``classify_batch`` (three repeats) and beam-4
+     ``generate_report_ids`` (two repeats; random weights run all 180 steps),
+     after one warm-up call each, on the host clock around
+     ``torch.cuda.synchronize``;
+  2. one warm call each of generate B=4, generate B=32 and classify B=4 under
+     ``torch.profiler``: the wall time, the device time (the profiler's self
+     CUDA total: the sum of the kernels' durations), the busy share = device /
+     wall (the profiler's own overhead inflates the wall, so the share is a
+     lower bound), the host's self CPU total and op count, and the top ops by
+     device time. The full tables go to chiprun_out/profile/.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SEED = 0
+TEXTS = ["62 year old male, productive cough and fever for 3 days, smoker",
+         "45F, sharp left-sided chest pain after a fall, no fever",
+         "follow-up after pneumonia, shortness of breath on exertion, on 2L O2",
+         "routine pre-operative film, no complaints"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def synced_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(name: str, fn, out_dir: Path) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    host = sum(e.self_cpu_time_total for e in events) / 1e3
+    n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU)
+    log(f"=== {name}: wall {wall:.1f} ms, device {device:.1f} ms, busy share "
+        f"{device / wall:.3f}; host self CPU {host:.1f} ms over {n_ops} host ops")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+                                      max_name_column_width=60)
+    (out_dir / f"{name.replace(' ', '_').replace('=', '')}.txt").write_text(table)
+    for row in table.splitlines()[3:13]:  # header + top 10 ops by device time
+        log(row)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
+        return 1
+    import subprocess
+
+    from mmdx_tpu.config import DiagnosisConfig
+    from mmdx_tpu_torch.checkpoints import bridge
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    log(f"card: {smi.stdout.strip()}")
+    out_dir = ROOT / "chiprun_out" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    config = DiagnosisConfig()
+    bundle = bridge.bundle_from_variables(bridge.random_state(config, SEED), config)
+    engine = InferenceEngine(bundle, mode="fast", device=torch.device("cuda", 0))
+    rng = np.random.default_rng(SEED)
+    batches = {}
+    for b in (1, 4, 32):
+        images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(b)]
+        texts = [TEXTS[i % len(TEXTS)] for i in range(b)]
+
+        def classify(images=images, texts=texts, b=b):
+            return engine.classify_batch(images, texts, pad_to=b)
+
+        _, z_img, z_txt = classify()
+        engine.generate_report_ids(z_img, z_txt)  # warm-up
+        cls = sorted(synced_ms(classify)[1] for _ in range(3))
+        gen = sorted(synced_ms(lambda: engine.generate_report_ids(z_img, z_txt))[1]
+                     for _ in range(2))
+        log(f"B={b}: classify ms {cls}, generate ms {gen} (beam 4, 180 max steps)")
+        batches[b] = (classify, z_img, z_txt)
+
+    for b in (4, 32):
+        _, z_img, z_txt = batches[b]
+        profiled(f"generate B={b}", lambda: engine.generate_report_ids(z_img, z_txt),
+                 out_dir)
+    profiled("classify B=4", batches[4][0], out_dir)
+    log(f"tables in {out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
