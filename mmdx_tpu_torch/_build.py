@@ -36,6 +36,17 @@ SIGNATURES = {
     "mmdx_beam_attn_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, ck, cv, enc_bias, ctx, N, KK, heads, d, stream
     "mmdx_t5_cross_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qkv, kmask, ctx (f32), B, L, H, heads, scale, stream
+    "mmdx_bert_attn_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # A, B, alpha, bias, bias_rows, res, rs, A2, B2, alpha2, bias2, K2,
+    # s_out, relu, C, M, N, K, stream
+    "mmdx_int8_gemm_requant": [_P, _P, _P, _P, _I, _P, _F, _P, _P, _P, _P, _I,
+                               _F, _I, _P, _I, _I, _I, _P],
+    # A, B, row_scale, col_scale, bias, resid, C, M, N, K, epilogue, stream
+    "mmdx_int8_gemm_dequant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q, scale, M, H, stream
+    "mmdx_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
+    "mmdx_quant_rows_f32": [_P, _P, _P, _I, _I, _P],
 }
 
 # GEMM epilogues (csrc/gemm.cu enum Epilogue)
@@ -45,6 +56,12 @@ EPI_BIAS_GELU_BF16 = 2
 EPI_BIAS_RESID_F32 = 3
 EPI_RELU_BF16 = 4
 EPI_RESID_BF16 = 5
+
+# int8 GEMM dequantizing epilogues (csrc/int8_gemm.cu mmdx_int8_gemm_dequant)
+DQ_BF16 = 0             # bf16(acc*sc + bias)
+DQ_GELU_TANH_F32 = 1    # f32(gelu_tanh(acc*sc + bias))
+DQ_BIAS_RESID_F32 = 2   # f32((acc*sc + bias) + resid)
+DQ_RESID_BIAS_F32 = 3   # f32((resid + acc*sc) + bias)
 
 _LIB = None
 
@@ -72,18 +89,37 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hash-keyed shared library; return its path."""
+    """Compile csrc/*.cu into the hash-keyed shared library; return its path.
+
+    One nvcc per source, all started together, then one link."""
     so = BUILD_DIR / f"libmmdx_kernels_{source_hash()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.so"
-    cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp)]
-    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f".{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc(), *flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    tmp = BUILD_DIR / f".{tag}.so"
+    proc = subprocess.run([nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)
     return so
 

@@ -10,8 +10,11 @@ Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py`` and its use of
   (``pallas_bottleneck.fold_bn``), turns HWIO kernels into OIHW, and merges
   BERT's q/k/v kernels into the [H, 3H] block the attention kernel takes.
 * ``load_reference_bundle_pt(path)`` reads the reference-format
-  ``model_bundle.pt`` through ``mmdx_tpu.checkpoints.torch_import`` and runs
-  the same bridge — the port's jax-free serving format.
+  ``model_bundle.pt`` through the port's copy of
+  ``checkpoints/torch_import.py`` and runs the same bridge — the port's
+  jax-free serving format.
+* ``qparams_from_jax(q)`` turns the JAX int8 tower's ``quantize_backbone``
+  tree (numpy leaves) into the port's qparams.
 * ``random_state(config, seed)`` makes full-width random weights with numpy
   in the same tree layout (no downloads).
 * ``default_vocabs()`` reads the shipped tokenizer vocabs
@@ -26,9 +29,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mmdx_tpu.config import DISEASES, DiagnosisConfig
+from mmdx_tpu_torch.config import DISEASES, DiagnosisConfig
 from mmdx_tpu_torch.models.diagnosis import DiagnosisModel
 from mmdx_tpu_torch.models.resnet import RESNET50_STAGES
+from mmdx_tpu_torch.models.resnet_int8 import gemm_weight
 
 ASSETS = Path(__file__).resolve().parents[2] / "mmdx_tpu" / "assets"
 
@@ -36,7 +40,8 @@ ASSETS = Path(__file__).resolve().parents[2] / "mmdx_tpu" / "assets"
 @dataclass
 class TorchBundle:
     """The port's counterpart of ``mmdx_tpu.checkpoints.bundle.ModelBundle``:
-    config, the f32 CPU model, tokenizer vocabs, class names and thresholds."""
+    config, the f32 CPU model, tokenizer vocabs, class names, thresholds and
+    metadata (``int8_scales``: the turbo tower's calibrated {site: amax})."""
 
     config: DiagnosisConfig
     model: DiagnosisModel
@@ -46,10 +51,11 @@ class TorchBundle:
     thresholds: list[float]
     version: int = 1
     t5_scores: dict[int, float] | None = None
+    metadata: dict | None = None
 
     def tokenizers(self):
-        from mmdx_tpu.text.t5_tokenizer import T5StyleTokenizer
-        from mmdx_tpu.text.wordpiece import WordPieceTokenizer
+        from mmdx_tpu_torch.text.t5_tokenizer import T5StyleTokenizer
+        from mmdx_tpu_torch.text.wordpiece import WordPieceTokenizer
 
         return (WordPieceTokenizer(vocab=self.bert_vocab),
                 T5StyleTokenizer(vocab=self.t5_vocab, scores=self.t5_scores))
@@ -207,14 +213,15 @@ def variables_to_torch(variables: dict, config: DiagnosisConfig) -> DiagnosisMod
 
 
 def bundle_from_variables(variables: dict, config: DiagnosisConfig, *,
-                          class_names=None, thresholds=None,
-                          version: int = 1) -> TorchBundle:
+                          class_names=None, thresholds=None, version: int = 1,
+                          metadata: dict | None = None) -> TorchBundle:
     bert, t5, scores = default_vocabs()
     return TorchBundle(
         config=config, model=variables_to_torch(variables, config),
         bert_vocab=bert, t5_vocab=t5, t5_scores=scores,
         class_names=list(class_names or config.class_names),
-        thresholds=list(thresholds or config.thresholds), version=version)
+        thresholds=list(thresholds or config.thresholds), version=version,
+        metadata=dict(metadata or {}))
 
 
 def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> TorchBundle:
@@ -224,7 +231,7 @@ def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> Tor
     The reference ``cfg`` carries widths but no head counts or depths, so
     ``DiagnosisConfig.from_reference_json`` gives the reference's own
     architecture; a model of other widths passes its ``config``."""
-    from mmdx_tpu.checkpoints import torch_import as ti
+    from mmdx_tpu_torch.checkpoints import torch_import as ti
 
     blob = ti.load_torch_state_dict(path)
     missing = {"cfg", "fusion_state", "image_state", "text_state"} - set(blob)
@@ -242,7 +249,27 @@ def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> Tor
     art = blob["cfg"].get("artifacts") or {}
     return bundle_from_variables(
         variables, config, class_names=art.get("class_names", list(DISEASES)),
-        thresholds=art.get("thresholds"), version=int(blob.get("version", 1)))
+        thresholds=art.get("thresholds"), version=int(blob.get("version", 1)),
+        metadata={"imported_from": "torch_model_bundle"})
+
+
+def qparams_from_jax(q: dict) -> dict:
+    """The JAX ``resnet_int8.quantize_backbone`` tree, as numpy leaves, ->
+    the port's qparams (``models/resnet_int8.quantize_backbone``'s layout):
+    the same int8 HWIO weights (and their GEMM operand ``wk``), f32 scales
+    and biases as CPU tensors, the activation scales as floats; the TPU's
+    space-to-depth weights (``w_s2d``) are dropped."""
+    def conv(d):
+        out = {k: torch.from_numpy(np.array(v)) for k, v in d.items() if k != "w_s2d"}
+        out["wk"] = gemm_weight(out["w"])
+        return out
+
+    out = {"scales": {k: float(np.float32(v)) for k, v in q["scales"].items()}}
+    for name, tree in q.items():
+        if name == "scales":
+            continue
+        out[name] = conv(tree) if "w" in tree else {k: conv(v) for k, v in tree.items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +278,8 @@ def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> Tor
 def small_config() -> DiagnosisConfig:
     """The full architecture at the narrow widths of
     ``mmdx_tpu.checkpoints.bundle.new_random_bundle(small=True)`` (tests)."""
-    from mmdx_tpu.config import (FusionConfig, ImageEncoderConfig,
-                                 ReportDecoderConfig, TextEncoderConfig)
+    from mmdx_tpu_torch.config import (FusionConfig, ImageEncoderConfig,
+                                       ReportDecoderConfig, TextEncoderConfig)
 
     bert, t5, _ = default_vocabs()
     return DiagnosisConfig(

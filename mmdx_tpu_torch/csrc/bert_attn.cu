@@ -11,18 +11,23 @@
 // blocks, head-major within each). Q, K^T and V of the (sequence, head) are
 // staged in shared memory (K transposed so a warp's lanes read consecutive
 // keys); each warp takes query rows in turn, keeps its f32 score row in
-// shared memory, and writes its bf16 context row. Numerics follow the Pallas
+// shared memory, and writes its context row. Numerics follow the Pallas
 // body: f32 scores and softmax, probabilities rounded to bf16 before the
-// product with V, f32 accumulation, bf16 output.
+// product with V, f32 accumulation, and a bf16 context (_kernel) or an f32
+// one (_kernel_int8, which quantizes the f32 context per row next).
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 
+__device__ __forceinline__ void store_ctx(bf16* p, float v) { *p = f2bf(v); }
+__device__ __forceinline__ void store_ctx(float* p, float v) { *p = v; }
+
+template <typename OutT>
 __global__ void __launch_bounds__(WARPS * 32)
 bert_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmask,
-                 bf16* __restrict__ ctx, int L, int H, int d, float scale) {
+                 OutT* __restrict__ ctx, int L, int H, int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -68,14 +73,32 @@ bert_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmask,
     sum = warp_sum(sum);
     for (int j = lane; j < L; j += 32) srow[j] = round_bf16(srow[j] / sum);
     __syncwarp();
-    bf16* out = ctx + ((size_t)b * L + i) * H + (size_t)h * d;
+    OutT* out = ctx + ((size_t)b * L + i) * H + (size_t)h * d;
     for (int t = lane; t < d; t += 32) {
       float a = 0.0f;
       for (int j = 0; j < L; ++j) a += srow[j] * bf2f(Vs[j * d + t]);
-      out[t] = f2bf(a);
+      store_ctx(out + t, a);
     }
     __syncwarp();
   }
+}
+
+template <typename OutT>
+int launch_bert_attn(const void* qkv, const void* kmask, void* ctx, int B, int L,
+                     int H, int heads, float scale, void* stream) {
+  if (B <= 0 || L <= 0 || heads <= 0 || H % heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int d = H / heads;
+  if (d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)3 * L * d * sizeof(bf16) + (size_t)WARPS * L * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      bert_attn_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bert_attn_kernel<OutT><<<dim3(heads, B), WARPS * 32, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(kmask),
+      static_cast<OutT*>(ctx), L, H, d, scale);
+  return launch_status();
 }
 
 }  // namespace
@@ -84,17 +107,12 @@ bert_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmask,
 MMDX_EXPORT int mmdx_bert_attn(const void* qkv, const void* kmask, void* ctx,
                                int B, int L, int H, int heads, float scale,
                                void* stream) {
-  if (B <= 0 || L <= 0 || heads <= 0 || H % heads != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int d = H / heads;
-  if (d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)3 * L * d * sizeof(bf16) + (size_t)WARPS * L * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bert_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bert_attn_kernel<<<dim3(heads, B), WARPS * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(kmask),
-      static_cast<bf16*>(ctx), L, H, d, scale);
-  return launch_status();
+  return launch_bert_attn<bf16>(qkv, kmask, ctx, B, L, H, heads, scale, stream);
+}
+
+// The same with an f32 context [B*L, H] (the W8A8 block, _kernel_int8).
+MMDX_EXPORT int mmdx_bert_attn_f32(const void* qkv, const void* kmask, void* ctx,
+                                   int B, int L, int H, int heads, float scale,
+                                   void* stream) {
+  return launch_bert_attn<float>(qkv, kmask, ctx, B, L, H, heads, scale, stream);
 }

@@ -28,7 +28,7 @@ from typing import Callable
 
 import torch
 
-from mmdx_tpu.config import GenerationConfig
+from mmdx_tpu_torch.config import GenerationConfig
 from mmdx_tpu_torch.decode.ngram import banned_ngram_mask
 
 NEG = -1e9

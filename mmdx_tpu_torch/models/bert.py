@@ -8,6 +8,14 @@ With ``kernels=True`` they go through the hand-written kernels
 (ops/bert_attn.py, ops/fused_ffn.py), the attention kernel only up to its
 128-token limit as in the JAX route; otherwise through their plain
 versions. LayerNorm eps 1e-12, exact-erf GELU, additive -1e9 key mask.
+
+``int8=True`` (``int8_matmuls`` in the JAX config, the turbo tier) runs both
+blocks in their W8A8 form (K7, K6: per-row activation scales, per-column
+weight scales, tanh-GELU) from weights quantized once by
+``TextEncoder.quantize_int8_`` from the weights as cast to the model dtype
+(the JAX blocks quantize ``w.astype(self.dtype)`` at every call, ``bert.py:81-82,
+145-146``: the same numbers). Beyond the 128-token limit the attention block
+falls back to the bf16 route and the FFN stays W8A8, as in the JAX route.
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmdx_tpu.config import TextEncoderConfig
+from mmdx_tpu_torch.config import TextEncoderConfig
 from mmdx_tpu_torch.models.layers import Dense, LayerNorm, param
 from mmdx_tpu_torch.ops import bert_attn, fused_ffn
 from mmdx_tpu_torch.ops.pooling import masked_mean_pool
@@ -35,17 +43,33 @@ class BertLayer(nn.Module):
         self.ffn_out = Dense(cfg.intermediate_size, h)
         self.ffn_ln = LayerNorm(h, cfg.layer_norm_eps)
 
-    def forward(self, x, kmask, seq_len: int, kernels: bool):
+    def quantize_int8_(self) -> None:
+        """Per-column int8 forms of the four projection weights (W8A8)."""
+        self.int8 = {k: fused_ffn.quant_weight_cols(getattr(self, k).kernel)
+                     for k in ("attn_qkv", "attn_out", "ffn_in", "ffn_out")}
+
+    def forward(self, x, kmask, seq_len: int, kernels: bool, int8: bool = False):
         """x [B*L, H]; kmask [B*L] f32 additive -> [B*L, H]."""
-        eps = self.cfg.layer_norm_eps
-        attn = (bert_attn.fused_attention_block
-                if kernels and seq_len <= bert_attn.MAX_SEQ_LEN
-                else bert_attn.fused_attention_block_plain)
+        eps, heads = self.cfg.layer_norm_eps, self.cfg.num_heads
+        fits = seq_len <= bert_attn.MAX_SEQ_LEN
+        if int8 and fits:
+            q = self.int8
+            x = bert_attn.fused_attention_block_int8(
+                x, kmask, *q["attn_qkv"], self.attn_qkv.bias, *q["attn_out"],
+                self.attn_out.bias, self.attn_ln.scale, self.attn_ln.bias,
+                seq_len=seq_len, num_heads=heads, eps=eps)
+        else:
+            attn = (bert_attn.fused_attention_block if kernels and fits
+                    else bert_attn.fused_attention_block_plain)
+            x = attn(x, kmask, self.attn_qkv.kernel, self.attn_qkv.bias,
+                     self.attn_out.kernel, self.attn_out.bias, self.attn_ln.scale,
+                     self.attn_ln.bias, seq_len=seq_len, num_heads=heads, eps=eps)
+        if int8:
+            q = self.int8
+            return fused_ffn.fused_ffn_ln_int8(
+                x, *q["ffn_in"], self.ffn_in.bias, *q["ffn_out"], self.ffn_out.bias,
+                self.ffn_ln.scale, self.ffn_ln.bias, eps=eps)
         ffn = fused_ffn.fused_ffn_ln if kernels else fused_ffn.fused_ffn_ln_plain
-        x = attn(x, kmask, self.attn_qkv.kernel, self.attn_qkv.bias,
-                 self.attn_out.kernel, self.attn_out.bias, self.attn_ln.scale,
-                 self.attn_ln.bias, seq_len=seq_len,
-                 num_heads=self.cfg.num_heads, eps=eps)
         return ffn(x, self.ffn_in.kernel, self.ffn_in.bias, self.ffn_out.kernel,
                    self.ffn_out.bias, self.ffn_ln.scale, self.ffn_ln.bias, eps=eps)
 
@@ -65,7 +89,7 @@ class BertEncoder(nn.Module):
         self.pooler = Dense(h, h) if pooler else None
 
     def forward(self, input_ids, attention_mask, token_type_ids=None,
-                kernels: bool = False):
+                kernels: bool = False, int8: bool = False):
         """ids/mask [B, L] -> last hidden state [B, L, H]."""
         b, l = input_ids.shape
         if token_type_ids is None:
@@ -77,7 +101,7 @@ class BertEncoder(nn.Module):
         x = self.embeddings_ln(emb).reshape(b * l, -1)
         kmask = ((1.0 - attention_mask.to(torch.float32)) * NEG_INF).reshape(b * l)
         for layer in self.layers:
-            x = layer(x, kmask, l, kernels)
+            x = layer(x, kmask, l, kernels, int8)
         return x.reshape(b, l, -1)
 
 
@@ -90,8 +114,15 @@ class TextEncoder(nn.Module):
         self.classifier = (Dense(cfg.d_txt, cfg.n_disease)
                            if cfg.use_warmup_classifier else None)
 
+    def quantize_int8_(self) -> "TextEncoder":
+        """Quantize every layer's projections for ``int8=True`` (once, from
+        the weights in their current dtype and device)."""
+        for layer in self.bert.layers:
+            layer.quantize_int8_()
+        return self
+
     def encode(self, input_ids, attention_mask, token_type_ids=None,
-               kernels: bool = False):
+               kernels: bool = False, int8: bool = False):
         """-> embeddings [B, d_txt]."""
-        hidden = self.bert(input_ids, attention_mask, token_type_ids, kernels)
+        hidden = self.bert(input_ids, attention_mask, token_type_ids, kernels, int8)
         return self.proj(masked_mean_pool(hidden, attention_mask))

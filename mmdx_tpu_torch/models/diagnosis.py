@@ -1,16 +1,18 @@
 """The flagship model: image tower + text tower + late fusion + report decoder.
 
 Port of ``mmdx_tpu/models/diagnosis.py`` (``classify`` ``:45``,
-``prepare_generation`` / ``decode_step_beam`` ``:83-95``). ``kernels=True``
-routes the text tower and the decode step through the hand-written kernels
-(fast mode); ``kernels=False`` runs their plain versions (parity mode).
+``classify_from_image_feats`` ``:62-81``, ``prepare_generation`` /
+``decode_step_beam`` ``:83-95``). ``kernels=True`` routes the text tower and
+the decode step through the hand-written kernels (fast and turbo mode);
+``kernels=False`` runs their plain versions (parity mode). ``int8=True``
+runs the text tower's blocks in their W8A8 form (turbo mode).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from mmdx_tpu.config import DiagnosisConfig
+from mmdx_tpu_torch.config import DiagnosisConfig
 from mmdx_tpu_torch.models.bert import TextEncoder
 from mmdx_tpu_torch.models.fusion import FusionModel
 from mmdx_tpu_torch.models.resnet import ImageEncoder
@@ -26,12 +28,26 @@ class DiagnosisModel(nn.Module):
         self.fusion = FusionModel(config.fusion, config.report, t5_encoder_layers)
 
     def classify(self, images, input_ids, attention_mask, token_type_ids=None,
-                 kernels: bool = False):
+                 kernels: bool = False, int8: bool = False):
         """Preprocessed NHWC images + token ids -> (probs [B, 13] f32, z_img,
         z_txt)."""
         z_img = self.image_encoder.encode(images)
+        return self._classify(z_img, input_ids, attention_mask, token_type_ids,
+                              kernels, int8)
+
+    def classify_from_image_feats(self, feats, input_ids, attention_mask,
+                                  token_type_ids=None, kernels: bool = False,
+                                  int8: bool = False):
+        """As ``classify`` from precomputed pooled backbone features [B, 2048]
+        (the int8 tower's f32 output), projected in the model dtype."""
+        z_img = self.image_encoder.project(feats)
+        return self._classify(z_img, input_ids, attention_mask, token_type_ids,
+                              kernels, int8)
+
+    def _classify(self, z_img, input_ids, attention_mask, token_type_ids, kernels,
+                  int8: bool = False):
         z_txt = self.text_encoder.encode(input_ids, attention_mask, token_type_ids,
-                                         kernels)
+                                         kernels, int8)
         logits = self.fusion.disease_head(self.fusion.fuse(z_img, z_txt))
         return torch.sigmoid(logits.to(torch.float32)), z_img, z_txt
 

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmdx_tpu.config import FusionConfig, ReportDecoderConfig
+from mmdx_tpu_torch.config import FusionConfig, ReportDecoderConfig
 from mmdx_tpu_torch.models.layers import Dense, LayerNorm
 from mmdx_tpu_torch.models.t5 import T5
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from mmdx_tpu.config import ImageEncoderConfig
+from mmdx_tpu_torch.config import ImageEncoderConfig
 from mmdx_tpu_torch.models.layers import Dense, param
 
 RESNET50_STAGES = (3, 4, 6, 3)
@@ -89,3 +89,8 @@ class ImageEncoder(nn.Module):
         """Preprocessed NHWC images [B, S, S, 3] -> embeddings [B, d_img]."""
         x = images_nhwc.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
         return self.proj(self.backbone(x))
+
+    def project(self, feats):
+        """Pooled backbone features [B, 2048] (f32 from the int8 tower) ->
+        embeddings, in the weights' dtype (``ImageEncoder.heads``)."""
+        return self.proj(feats.to(self.proj.kernel.dtype))

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmdx_tpu.config import ReportDecoderConfig
+from mmdx_tpu_torch.config import ReportDecoderConfig
 from mmdx_tpu_torch.models.layers import Dense, param
 from mmdx_tpu_torch.ops import beam_attn, t5_step
 

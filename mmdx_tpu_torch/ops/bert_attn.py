@@ -1,10 +1,11 @@
 """Fused BERT attention block:
 ``LayerNorm(x + softmax(Q K^T / sqrt(d) + kmask) V Wo + bo)``.
 
-Port of ``mmdx_tpu/ops/pallas_bert_attn.py:fused_attention_block`` (the bf16
-``_kernel``; the int8 ``_kernel_int8`` is turbo tier, not ported yet).
+Port of ``mmdx_tpu/ops/pallas_bert_attn.py:fused_attention_block``: the bf16
+``_kernel`` (K1, below) and the W8A8 ``_kernel_int8`` of ``int8_matmuls=True``
+(K7, ``fused_attention_block_int8`` at the end of the module).
 
-Kernel (CUDA C++, ``csrc/gemm.cu`` + ``csrc/bert_attn.cu``), four launches:
+K1 kernel (CUDA C++, ``csrc/gemm.cu`` + ``csrc/bert_attn.cu``), four launches:
 
 1. ``qkv = bf16(x @ Wqkv + bqkv)`` — tiled bf16 tensor-core GEMM, bias
    epilogue (merged weights: q|k|v column blocks, head-major in each);
@@ -30,21 +31,20 @@ from __future__ import annotations
 import torch
 
 from mmdx_tpu_torch import _build
-from mmdx_tpu_torch.ops.fused_ffn import layer_norm_f32
+from mmdx_tpu_torch.ops.fused_ffn import layer_norm_f32, quant_rows
 
 F32 = torch.float32
 MAX_SEQ_LEN = 128
 
 
-def fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
-                                seq_len: int, num_heads: int, eps: float = 1e-12):
-    """Plain PyTorch version, per sequence, with the Pallas body's rounding
-    points (qkv, probabilities and context rounded to x.dtype)."""
-    dt = x.dtype
-    m, hidden = x.shape
+def attention_ctx_f32(qkv, kmask, seq_len: int, num_heads: int) -> torch.Tensor:
+    """softmax(Q K^T / sqrt(d) + kmask) V per sequence from the merged
+    ``qkv [M, 3H]``: f32 scores and softmax, probabilities rounded to
+    qkv.dtype, f32 context [M, H] (the Pallas bodies' rounding points)."""
+    dt = qkv.dtype
+    m, hidden = qkv.shape[0], qkv.shape[1] // 3
     d = hidden // num_heads
     b = m // seq_len
-    qkv = (x.to(F32) @ wqkv.to(F32) + bqkv.to(F32)).to(dt)
 
     def heads(t):  # [M, H] -> [B, heads, L, d]
         return t.reshape(b, seq_len, num_heads, d).permute(0, 2, 1, 3).to(F32)
@@ -54,7 +54,16 @@ def fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
     s = s + kmask.to(F32).reshape(b, 1, 1, seq_len)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dt)
-    ctx = (p.to(F32) @ v).to(dt).permute(0, 2, 1, 3).reshape(m, hidden)
+    return (p.to(F32) @ v).permute(0, 2, 1, 3).reshape(m, hidden)
+
+
+def fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
+                                seq_len: int, num_heads: int, eps: float = 1e-12):
+    """Plain PyTorch version, per sequence, with the Pallas body's rounding
+    points (qkv, probabilities and context rounded to x.dtype)."""
+    dt = x.dtype
+    qkv = (x.to(F32) @ wqkv.to(F32) + bqkv.to(F32)).to(dt)
+    ctx = attention_ctx_f32(qkv, kmask, seq_len, num_heads).to(dt)
     y = x.to(F32) + ctx.to(F32) @ wo.to(F32) + bo.to(F32)
     return layer_norm_f32(y, ln_scale, ln_bias, eps).to(dt)
 
@@ -104,3 +113,82 @@ def fused_attention_block(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
 
 
 fused_attention_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the W8A8 attention block (turbo tier)
+# ---------------------------------------------------------------------------
+def fused_attention_block_int8_plain(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8, wos, bo,
+                                     ln_scale, ln_bias, seq_len: int, num_heads: int,
+                                     eps: float = 1e-12):
+    """Plain PyTorch version of ``_kernel_int8`` (``pallas_bert_attn.py:83-135``):
+    per-row int8 x, exact s32 QKV product dequantized and rounded to x.dtype,
+    the attention core with an f32 context, per-row int8 context, exact s32
+    out-projection, f32 residual and LayerNorm."""
+    from mmdx_tpu_torch.ops.int8_gemm import exact_matmul_s8
+
+    dt = x.dtype
+    xf = x.to(F32)
+    xi, sx = quant_rows(xf)
+    qkv = (exact_matmul_s8(xi, wqkv_i8) * (sx[:, None] * wqkvs) + bqkv.to(F32)).to(dt)
+    ctx = attention_ctx_f32(qkv, kmask, seq_len, num_heads)
+    ci, sc = quant_rows(ctx)
+    y = xf + exact_matmul_s8(ci, wo_i8) * (sc[:, None] * wos) + bo.to(F32)
+    return layer_norm_f32(y, ln_scale, ln_bias, eps).to(dt)
+
+
+def fused_attention_block_int8(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8, wos, bo,
+                               ln_scale, ln_bias, seq_len: int, num_heads: int,
+                               eps: float = 1e-12):
+    """W8A8 attention block, ``fused_attention_block(int8_matmuls=True)`` with
+    the weights quantized once by ``quant_weight_cols``: wqkv_i8 s8 [H, 3H],
+    wqkvs f32 [3H], wo_i8 s8 [H, H], wos f32 [H]; the rest as
+    ``fused_attention_block``.
+
+    Kernel (CUDA C++, ``csrc/int8_gemm.cu`` + ``csrc/bert_attn.cu`` +
+    ``csrc/gemm.cu``), six launches: row-quantize x; the int8 core with the
+    dequant + bias epilogue into bf16 qkv; the attention core writing an f32
+    context (the int8 body keeps it f32 before quantizing it); row-quantize
+    the context; the int8 core with the dequant + residual + bias epilogue
+    into f32; the LayerNorm kernel. What bounds it on the H100: the two
+    projections' int8 operations and the intermediates' bytes, as in K1.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (bf16 x, L <= 128) or raise."""
+    if x.device.type == "cpu":
+        return fused_attention_block_int8_plain(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8,
+                                                wos, bo, ln_scale, ln_bias, seq_len,
+                                                num_heads, eps)
+    from mmdx_tpu_torch.ops.int8_gemm import gemm_dequant, quant_rows_launch
+
+    m, h = x.shape
+    bf = torch.bfloat16
+    if m % seq_len or not 0 < seq_len <= MAX_SEQ_LEN:
+        raise ValueError(f"fused_attention_block_int8: seq_len {seq_len} must divide "
+                         f"{m} rows and be <= {MAX_SEQ_LEN}")
+    if h % 64 or h % num_heads or (h // num_heads) % 8:
+        raise ValueError(f"fused_attention_block_int8: unsupported width {h} / "
+                         f"{num_heads} heads")
+    for t, name, shape in ((x, "x", (m, h)), (ln_scale, "ln_scale", (h,)),
+                           (ln_bias, "ln_bias", (h,))):
+        _build.require(t, name, bf, shape)
+    _build.require(kmask, "kmask", F32, (m,))
+    lib, s = _build.lib(), _build.stream(x)
+    xi, sx = quant_rows_launch(x)
+    qkv = gemm_dequant(xi, wqkv_i8, sx, wqkvs, bqkv, None, bf, _build.DQ_BF16)
+    ctx = torch.empty((m, h), dtype=F32, device=x.device)
+    _build.check(lib.mmdx_bert_attn_f32(qkv.data_ptr(), kmask.data_ptr(), ctx.data_ptr(),
+                                        m // seq_len, seq_len, h, num_heads,
+                                        1.0 / float(h // num_heads) ** 0.5, s),
+                 "attn_int8_core")
+    ci, sc = quant_rows_launch(ctx)
+    y = gemm_dequant(ci, wo_i8, sc, wos, bo, x, F32, _build.DQ_RESID_BIAS_F32)
+    out = torch.empty_like(x)
+    _build.check(lib.mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
+                                             ln_bias.data_ptr(), out.data_ptr(),
+                                             m, h, eps, s), "attn_int8_ln")
+    fused_attention_block_int8.launches += 1
+    return out
+
+
+fused_attention_block_int8.launches = 0

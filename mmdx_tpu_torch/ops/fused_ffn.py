@@ -1,9 +1,11 @@
-"""Fused BERT feed-forward block: ``LayerNorm(x + gelu_erf(x Wi + bi) Wo + bo)``.
+"""Fused BERT feed-forward block: ``LayerNorm(x + gelu_erf(x Wi + bi) Wo + bo)``,
+and its W8A8 form with tanh-GELU.
 
-Port of ``mmdx_tpu/ops/pallas_ffn.py:fused_ffn_ln`` (the bf16 kernel; the
-int8 variant belongs to the turbo tier and is not ported yet).
+Port of ``mmdx_tpu/ops/pallas_ffn.py``: ``fused_ffn_ln`` (K2, below) and
+``fused_ffn_ln_int8`` with its quantizers ``quant_rows`` and
+``quant_weight_cols`` (K6, at the end of the module).
 
-Kernel (CUDA C++, ``csrc/gemm.cu``), three launches:
+K2 kernel (CUDA C++, ``csrc/gemm.cu``), three launches:
 
 1. ``mid = bf16(gelu_erf(x @ Wi + bi))`` — tiled bf16 GEMM on the tensor
    cores with the bias + exact-erf GELU epilogue (``erff``; the Pallas body
@@ -82,3 +84,93 @@ def fused_ffn_ln(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
 
 
 fused_ffn_ln.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the W8A8 FFN block (turbo tier)
+# ---------------------------------------------------------------------------
+def quant_rows(x):
+    """Per-row symmetric int8 quantization (``pallas_ffn._quant_rows``):
+    s = max(amax_row, 1e-12) / 127, q = clip(round(x / s), -127, 127).
+    -> (s8 [M, H], f32 [M] scales). Plain PyTorch on any device: the plain
+    versions use it, the kernels launch ``int8_gemm.quant_rows_launch``."""
+    from mmdx_tpu_torch.ops.int8_gemm import div_exact
+
+    xf = x.to(F32)
+    s = div_exact(torch.clamp_min(xf.abs().amax(-1), 1e-12), 127.0)
+    q = torch.clamp(torch.round(xf / s[:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quant_weight_cols(w):
+    """Per-output-column symmetric int8 weights (``pallas_ffn.quant_weight_cols``):
+    w [in, out] -> (s8 [in, out], f32 [out] scales), from ``w`` as given (the
+    JAX blocks quantize the weights cast to the model dtype)."""
+    from mmdx_tpu_torch.ops.int8_gemm import div_exact
+
+    wf = w.to(F32)
+    ws = div_exact(torch.clamp_min(wf.abs().amax(0), 1e-12), 127.0)
+    return torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8), ws
+
+
+def gelu_tanh(x):
+    """torch/HF "gelu_new" in the evaluation order of ``pallas_ffn._gelu_tanh``."""
+    return 0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x * x * x)))
+
+
+def fused_ffn_ln_int8_plain(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale, ln_bias,
+                            eps: float = 1e-12):
+    """Plain PyTorch version of ``_ffn_kernel_int8`` (``pallas_ffn.py:79-112``):
+    exact s32 products, f32 dequant/GELU/residual/LayerNorm."""
+    from mmdx_tpu_torch.ops.int8_gemm import exact_matmul_s8
+
+    xf = x.to(F32)
+    xi, sx = quant_rows(xf)
+    mid = exact_matmul_s8(xi, wi_i8) * (sx[:, None] * wis) + bi.to(F32)
+    mid = gelu_tanh(mid)
+    mi, sm = quant_rows(mid)
+    y = exact_matmul_s8(mi, wo_i8) * (sm[:, None] * wos) + bo.to(F32) + xf
+    return layer_norm_f32(y, ln_scale, ln_bias, eps).to(x.dtype)
+
+
+def fused_ffn_ln_int8(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale, ln_bias,
+                      eps: float = 1e-12):
+    """W8A8 FFN block, ``fused_ffn_ln_int8`` with the weights quantized once
+    by ``quant_weight_cols``: x [M, H]; wi_i8 s8 [H, F], wis f32 [F]; bi [F];
+    wo_i8 s8 [F, H], wos f32 [H]; bo, ln_scale, ln_bias [H].
+
+    Kernel (CUDA C++, ``csrc/int8_gemm.cu`` + ``csrc/gemm.cu``), five
+    launches: row-quantize x; the int8 core with the dequant + bias +
+    tanh-GELU epilogue into f32 [M, F]; row-quantize that; the int8 core with
+    the dequant + bias + residual epilogue into f32 [M, H]; the LayerNorm
+    kernel. What bounds it on the H100: int8 operations at the serving rows
+    (2 x M x 768 x 3072 MACs at 1,979 TOP/s); the f32 [M, 3072] GELU output,
+    which the TPU kernel kept in VMEM, goes through device memory here and
+    is read twice (amax, then quantize), so bytes bound it as built.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (bf16 x) or raise."""
+    if x.device.type == "cpu":
+        return fused_ffn_ln_int8_plain(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale,
+                                       ln_bias, eps)
+    from mmdx_tpu_torch.ops.int8_gemm import gemm_dequant, quant_rows_launch
+
+    m, h = x.shape
+    bf = torch.bfloat16
+    for t, name, shape in ((x, "x", (m, h)), (bo, "bo", (h,)),
+                           (ln_scale, "ln_scale", (h,)), (ln_bias, "ln_bias", (h,))):
+        _build.require(t, name, bf, shape)
+    xi, sx = quant_rows_launch(x)
+    mid = gemm_dequant(xi, wi_i8, sx, wis, bi, None, F32, _build.DQ_GELU_TANH_F32)
+    mi, sm = quant_rows_launch(mid)
+    y = gemm_dequant(mi, wo_i8, sm, wos, bo, x, F32, _build.DQ_BIAS_RESID_F32)
+    out = torch.empty_like(x)
+    _build.check(_build.lib().mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
+                                                      ln_bias.data_ptr(), out.data_ptr(),
+                                                      m, h, eps, _build.stream(x)),
+                 "ffn_int8_ln")
+    fused_ffn_ln_int8.launches += 1
+    return out
+
+
+fused_ffn_ln_int8.launches = 0

@@ -1,15 +1,19 @@
 """Image preprocessing: resize(256, antialias) -> center-crop(224) -> scale ->
 3-channel -> ImageNet normalize.
 
-Port of ``mmdx_tpu/ops/preprocess.py`` (``preprocess_exact`` ``:29-65`` and
-``preprocess_batch_device`` ``:71-101, :145``) without its jax import:
+Port of ``mmdx_tpu/ops/preprocess.py`` (``preprocess_exact`` ``:29-65``,
+``preprocess_batch_device`` ``:71-101, :145`` and
+``preprocess_batch_device_gray`` ``:102-142``) without its jax import:
 
 * ``preprocess_exact`` — host numpy, bit-exact vs PIL + torchvision, built on
-  ``mmdx_tpu.ops.resize`` (parity mode);
+  the port's copy of ``ops/resize.py`` (parity mode);
 * ``preprocess_batch_device`` — on-device: the fused resize + crop is two
-  matmuls per image over ``mmdx_tpu.ops.resize.fused_resize_crop_matrices``
-  and the normalize folds into one multiply-add (fast mode). Plain matmuls
-  outside any kernel, so plain torch ops.
+  matmuls per image over ``resize.fused_resize_crop_matrices`` and the
+  normalize folds into one multiply-add (fast and turbo mode). Plain matmuls
+  outside any kernel, so plain torch ops;
+* ``preprocess_batch_device_gray`` — the same resize + crop for 1-channel
+  batches, emitting the centered raw gray v = u - 0.5 that the int8 tower's
+  folded gray stem takes (turbo mode).
 
 Outputs are NHWC, as in the JAX package.
 """
@@ -18,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mmdx_tpu.config import IMAGENET_MEAN, IMAGENET_STD
-from mmdx_tpu.ops import resize as R
+from mmdx_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from mmdx_tpu_torch.ops import resize as R
 
 
 def preprocess_exact(img_u8: np.ndarray, img_size: int = 224, resize_size: int = 256,
@@ -50,16 +54,32 @@ def preprocess_exact(img_u8: np.ndarray, img_size: int = 224, resize_size: int =
     return (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
-def preprocess_batch_device(batch_u8: torch.Tensor, img_size: int = 224,
-                            resize_size: int = 256, mean=IMAGENET_MEAN,
-                            std=IMAGENET_STD, out_dtype=torch.float32) -> torch.Tensor:
-    """uint8 [B, H, W, C] on the device -> normalized [B, S, S, 3] NHWC."""
+def _resize_crop(batch_u8: torch.Tensor, img_size: int, resize_size: int) -> torch.Tensor:
     _, h, w, _ = batch_u8.shape
     kh, kw = (torch.from_numpy(k).to(batch_u8.device)
               for k in R.fused_resize_crop_matrices(h, w, resize_size, img_size))
     x = batch_u8.to(torch.float32)
     x = torch.einsum("bhwc,oh->bowc", x, kh)
-    x = torch.einsum("bhwc,ow->bhoc", x, kw)
+    return torch.einsum("bhwc,ow->bhoc", x, kw)
+
+
+def preprocess_batch_device_gray(batch_u8: torch.Tensor, img_size: int = 224,
+                                 resize_size: int = 256,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """uint8 [B, H, W, 1] on the device -> centered raw gray v = u - 0.5
+    [B, S, S, 1] NHWC (u the resized, cropped gray in [0, 1]): no channel
+    broadcast and no normalize; those fold into the int8 gray stem."""
+    if batch_u8.shape[-1] != 1:
+        raise ValueError(f"gray preproc needs 1-channel input, got {batch_u8.shape[-1]}")
+    x = _resize_crop(batch_u8, img_size, resize_size)
+    return (x * (1.0 / 255.0) - 0.5).to(out_dtype).contiguous()
+
+
+def preprocess_batch_device(batch_u8: torch.Tensor, img_size: int = 224,
+                            resize_size: int = 256, mean=IMAGENET_MEAN,
+                            std=IMAGENET_STD, out_dtype=torch.float32) -> torch.Tensor:
+    """uint8 [B, H, W, C] on the device -> normalized [B, S, S, 3] NHWC."""
+    x = _resize_crop(batch_u8, img_size, resize_size)
     if x.shape[-1] == 1:
         x = x.expand(*x.shape[:-1], 3)
     std_t = torch.tensor(std, dtype=torch.float32, device=x.device)

@@ -2,7 +2,7 @@
 
 Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
 (``prep_images``, ``prep_texts``, ``classify_batch``, ``generate_report_ids``,
-``generate_reports``, ``infer``, ``result_dict``) and two modes:
+``generate_reports``, ``infer``, ``result_dict``) and three modes:
 
 * ``parity`` — f32 weights and math, host-exact PIL-equivalent
   preprocessing, the plain PyTorch version of every op; TF32 is switched off
@@ -11,25 +11,36 @@ Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
   hand-written kernels: the BERT attention block and FFN block in the text
   tower, the beam self-attention partials (deferred cache writes) and the T5
   cross-attention + FFN half-step in the decode step. The kernels are chosen
-  by the mode alone; on CPU tensors their wrappers run the plain versions.
+  by the mode alone; on CPU tensors their wrappers run the plain versions;
+* ``turbo`` — fast mode with the static-PTQ int8 image tower
+  (``models/resnet_int8``, every conv through the int8 GEMM kernel), the
+  text tower's blocks in their W8A8 form (``MMDX_TEXT_INT8=0`` keeps them
+  bf16, ``MMDX_TEXT_INT8=1`` turns them on in fast mode too, as in the JAX
+  engine's TPU branch), and 1-channel batches through the centered-gray
+  preprocessing into the folded gray stem. Activation scales come from
+  ``bundle.metadata["int8_scales"]``, else the first batch calibrates them.
 
-``turbo`` (int8 image tower) and multi-device serving are not ported yet
-(ROADMAP Queue 1).
+Multi-device serving is not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import os
+import sys
+import time
 
 import numpy as np
 import torch
 
-from mmdx_tpu.config import GenerationConfig
 from mmdx_tpu_torch.checkpoints.bridge import TorchBundle
+from mmdx_tpu_torch.config import GenerationConfig
 from mmdx_tpu_torch.decode.beam_search import (beam_expand, beam_search,
                                                make_generation_kwargs)
-from mmdx_tpu_torch.ops.preprocess import preprocess_batch_device, preprocess_exact
+from mmdx_tpu_torch.models import resnet_int8 as ri
+from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
+                                           preprocess_batch_device_gray,
+                                           preprocess_exact)
 
 
 def bucket_ladder(max_len: int) -> tuple[int, ...]:
@@ -60,11 +71,7 @@ def resolve_device(device=None) -> torch.device:
 class InferenceEngine:
     def __init__(self, bundle: TorchBundle, mode: str = "parity",
                  canonical_size: int = 512, device=None, mesh=None):
-        if mode == "turbo":
-            raise NotImplementedError(
-                "turbo mode (int8 image tower + int8 text kernels) is not ported "
-                "to PyTorch yet: ROADMAP Queue 1, 'Turbo image tower'")
-        if mode not in ("parity", "fast"):
+        if mode not in ("parity", "fast", "turbo"):
             raise ValueError(f"unknown engine mode {mode!r}")
         if mesh is not None:
             raise NotImplementedError(
@@ -72,15 +79,25 @@ class InferenceEngine:
                 "'Multi-device'")
         self.bundle = bundle
         self.mode = mode
-        self.kernels = mode == "fast"
+        self.kernels = mode in ("fast", "turbo")
+        text_int8 = os.environ.get("MMDX_TEXT_INT8", "")
+        self.text_int8 = text_int8 == "1" or (mode == "turbo" and text_int8 != "0")
+        self._qparams = None
+        self.calibration_ms = None  # host time of the first-batch calibration
         self.canonical_size = canonical_size
         self.device = resolve_device(device)
         self.dtype = torch.float32 if mode == "parity" else torch.bfloat16
         if mode == "parity":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        model = copy.deepcopy(bundle.model).to(self.device)
+        # turbo never runs the bf16 backbone (the int8 tower folds from
+        # bundle.model), so its copy stays off the card: the memo maps it to None
+        skip = {id(bundle.model.image_encoder.backbone): None} if mode == "turbo" else {}
+        model = copy.deepcopy(bundle.model, skip).to(self.device)
         self.model = model.cast_(self.dtype).eval()
+        if self.text_int8:
+            with torch.inference_mode():
+                self.model.text_encoder.quantize_int8_()
         self.bert_tok, self.t5_tok = bundle.tokenizers()
         self.thresholds = np.asarray(bundle.thresholds, np.float32)
 
@@ -90,17 +107,18 @@ class InferenceEngine:
     @staticmethod
     def _decode(images) -> list[np.ndarray]:
         """uint8 ndarrays pass through; anything else (bytes, PIL images)
-        goes through mmdx_tpu.io.images, imported only then (it needs PIL)."""
+        goes through ``io.images``, imported only then (it needs PIL)."""
         images = list(images)
         if all(isinstance(a, np.ndarray) and a.dtype == np.uint8 for a in images):
             return images
-        from mmdx_tpu.io.images import decode_images
+        from mmdx_tpu_torch.io.images import decode_images
 
         return decode_images(images)
 
     def prep_images(self, images) -> np.ndarray:
         """parity: host-exact preprocessing -> [B, S, S, 3] float32;
-        fast: uint8 [B, H, W, ch] (preprocessing runs on the device)."""
+        fast, turbo: uint8 [B, H, W, ch] (preprocessing runs on the device;
+        a batch that is all 1-channel stays 1-channel)."""
         cfg = self.bundle.config.image
         arrays = self._decode(images)
         if self.mode == "parity":
@@ -113,7 +131,7 @@ class InferenceEngine:
         if len({a.shape[:2] for a in arrays}) == 1:
             canon = [a[:, :, None] if a.ndim == 2 else a for a in arrays]
         else:
-            from mmdx_tpu.io.images import to_canonical_u8
+            from mmdx_tpu_torch.io.images import to_canonical_u8
 
             canon = [to_canonical_u8(a, self.canonical_size) for a in arrays]
         if max(c.shape[-1] for c in canon) == 3:
@@ -125,7 +143,7 @@ class InferenceEngine:
         bucket covering the batch unless ``fixed_len``."""
         max_len = self.bundle.config.text.max_len
         enc = self.bert_tok.encode_batch(texts, max_len=max_len)
-        if self.mode == "fast" and not fixed_len:
+        if self.mode != "parity" and not fixed_len:
             longest = int(enc["attention_mask"].sum(axis=1).max(initial=1))
             for bucket in bucket_ladder(max_len):
                 if bucket >= longest:
@@ -159,20 +177,69 @@ class InferenceEngine:
             imgs, ids, mask, tt = _pad(imgs), _pad(ids), _pad(mask), _pad(tt)
         x = self._tensor(imgs)
         cfg = self.bundle.config.image
-        if x.dtype == torch.uint8:
-            x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size, cfg.mean,
-                                        cfg.std, out_dtype=self.dtype)
+        tokens = (self._tensor(ids).long(), self._tensor(mask).long(),
+                  self._tensor(tt).long())
+        if self.mode == "turbo":
+            qparams = self._ensure_qparams(x)
+            if x.dtype == torch.uint8 and x.shape[-1] == 1:
+                x = preprocess_batch_device_gray(x, cfg.img_size, cfg.resize_size,
+                                                 out_dtype=self.dtype)
+            elif x.dtype == torch.uint8:
+                x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
+                                            cfg.mean, cfg.std, out_dtype=self.dtype)
+            with torch.inference_mode():
+                feats = ri.int8_backbone_apply(qparams, x)
+                probs, z_img, z_txt = self.model.classify_from_image_feats(
+                    feats, *tokens, kernels=self.kernels, int8=self.text_int8)
         else:
-            x = x.to(self.dtype)
-        with torch.inference_mode():
-            probs, z_img, z_txt = self.model.classify(
-                x, self._tensor(ids).long(), self._tensor(mask).long(),
-                self._tensor(tt).long(), kernels=self.kernels)
+            if x.dtype == torch.uint8:
+                x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
+                                            cfg.mean, cfg.std, out_dtype=self.dtype)
+            else:
+                x = x.to(self.dtype)
+            with torch.inference_mode():
+                probs, z_img, z_txt = self.model.classify(
+                    x, *tokens, kernels=self.kernels, int8=self.text_int8)
         probs = probs.cpu().numpy()[:n0]
         z_img, z_txt = z_img[:n0], z_txt[:n0]
         if host_outputs:  # numpy f32 (exact for bf16), as the batcher concatenates
             z_img, z_txt = (z.float().cpu().numpy() for z in (z_img, z_txt))
         return probs, z_img, z_txt
+
+    def _ensure_qparams(self, images=None) -> dict:
+        """The int8 tower's qparams, built once per engine (turbo mode).
+
+        Activation scales come from ``bundle.metadata["int8_scales"]`` (a
+        bundle calibrated offline); a bundle without them, or with a site
+        missing (an older site schema), calibrates on the FIRST batch: one
+        f32 pass of the folded tower with TF32 off. ``images`` is that batch,
+        uint8 (preprocessed here, 3-channel normalized) or preprocessed."""
+        if self._qparams is not None:
+            return self._qparams
+        cfg = self.bundle.config.image
+        t0 = time.perf_counter()
+        folded = ri.folded_backbone(self.bundle.model.image_encoder.backbone,
+                                    self.device)
+        scales = (self.bundle.metadata or {}).get("int8_scales")
+        if scales and set(ri.calibration_sites()) - set(scales):
+            scales = None
+        if not scales:
+            print("[mmdx] turbo: no persisted int8_scales in the bundle — "
+                  f"calibrating from the first batch ({len(images)} image(s)); "
+                  "for production scales calibrate on representative studies",
+                  file=sys.stderr, flush=True)
+            x = torch.as_tensor(images).to(self.device)
+            if x.dtype == torch.uint8:
+                x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
+                                            cfg.mean, cfg.std, out_dtype=torch.float32)
+            scales = ri.calibrate_backbone(folded, x)
+        with torch.inference_mode():
+            self._qparams = ri.quantize_backbone(folded, scales, cfg.mean, cfg.std,
+                                                 cfg.img_size)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibration_ms = (time.perf_counter() - t0) * 1e3
+        return self._qparams
 
     @torch.inference_mode()
     def generate_report_ids(self, z_img, z_txt, gen: GenerationConfig | None = None,

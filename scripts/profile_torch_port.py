@@ -1,22 +1,31 @@
 #!/usr/bin/env python
 """Steady-state timing and a torch.profiler breakdown of the PyTorch port's
-fast path (mmdx_tpu_torch) on one CUDA card.
+fast and turbo paths (mmdx_tpu_torch) on one CUDA card.
 
     python3 scripts/profile_torch_port.py
 
-Full-width random weights (seed 0, as chip_smoke.py), fast mode, 256x256x3
-uint8 images and fixed 96-token text (``pad_to``):
+Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
+(``pad_to``):
 
-  1. for B in 1, 4, 32: ``classify_batch`` (three repeats) and beam-4
-     ``generate_report_ids`` (two repeats; random weights run all 180 steps),
-     after one warm-up call each, on the host clock around
-     ``torch.cuda.synchronize``;
-  2. one warm call each of generate B=4, generate B=32 and classify B=4 under
-     ``torch.profiler``: the wall time, the device time (the profiler's self
-     CUDA total: the sum of the kernels' durations), the busy share = device /
-     wall (the profiler's own overhead inflates the wall, so the share is a
-     lower bound), the host's self CPU total and op count, and the top ops by
-     device time. The full tables go to chiprun_out/profile/.
+  1. fast mode, 256x256x3 uint8 images, for B in 1, 4, 32: ``classify_batch``
+     (three repeats) and beam-4 ``generate_report_ids`` (two repeats; random
+     weights run all 180 steps), after one warm-up call each, on the host
+     clock around ``torch.cuda.synchronize``;
+  2. classify on 256x256 gray (1-channel) uint8 images, B in 1, 4, 32 and
+     512 (the JAX package's turbo headline batch, ``bench.py``), fast
+     against turbo (int8 tower through K5, W8A8 text blocks; the turbo
+     engine calibrates on its first batch, a warm-up), in turns fast, turbo,
+     turbo, fast, three repeats each;
+  3. one warm call each of generate B=4, generate B=32, classify B=4 and
+     gray classify B=32 in fast and turbo mode under ``torch.profiler``: the
+     wall time, the device time (the profiler's self CUDA total: the sum of
+     the kernels' durations), the busy share = device / wall (the profiler's
+     own overhead inflates the wall, so the share is a lower bound), the
+     host's self CPU total and op count, the top ops by device time, and for
+     the gray classifies the device time of the image tower's convolutions:
+     cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
+     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode. The full
+     tables go to the git-ignored output directory (``out_dir`` below).
 """
 from __future__ import annotations
 
@@ -48,7 +57,7 @@ def synced_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profiled(name: str, fn, out_dir: Path) -> None:
+def profiled(name: str, fn, out_dir: Path) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -66,11 +75,34 @@ def profiled(name: str, fn, out_dir: Path) -> None:
     n_ops = sum(1 for e in events if e.device_type == DeviceType.CPU)
     log(f"=== {name}: wall {wall:.1f} ms, device {device:.1f} ms, busy share "
         f"{device / wall:.3f}; host self CPU {host:.1f} ms over {n_ops} host ops")
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
-                                      max_name_column_width=60)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=25,
+                           max_name_column_width=60)
     (out_dir / f"{name.replace(' ', '_').replace('=', '')}.txt").write_text(table)
     for row in table.splitlines()[3:13]:  # header + top 10 ops by device time
         log(row)
+    return {a.key: (a.self_device_time_total / 1e3, a.device_time_total / 1e3)
+            for a in averages}
+
+
+def conv_time(name: str, ops: dict) -> None:
+    """The image tower's convolution device time in one profiled classify:
+    cuDNN's in fast mode, K5's (and, apart, the int8 glue's) in turbo."""
+    def self_ms(pred):
+        return sum(t for k, (t, _) in ops.items() if pred(k))
+
+    cudnn = sum(t for k, (_, t) in ops.items() if k == "aten::cudnn_convolution")
+    # the int8 core's two instantiations: <false> requantizes (K5, the
+    # tower), <true> dequantizes (the W8A8 text blocks' projections)
+    k5 = self_ms(lambda k: "int8_gemm_kernel<false>" in k)
+    text = self_ms(lambda k: "int8_gemm_kernel<true>" in k)
+    log(f"--- {name}: convolution device time: cuDNN {cudnn:.3f} ms (its bias adds "
+        f"{ops.get('aten::add_', (0, 0))[1]:.3f} ms, ReLUs "
+        f"{ops.get('aten::clamp_min', (0, 0))[1]:.3f} ms apart); K5 "
+        f"int8_gemm_kernel<false> {k5:.3f} ms; the text blocks' "
+        f"int8_gemm_kernel<true> {text:.3f} ms; im2col stacks (aten::cat) "
+        f"{ops.get('aten::cat', (0, 0))[1]:.3f} ms, max-pool (aten::maximum) "
+        f"{ops.get('aten::maximum', (0, 0))[1]:.3f} ms")
 
 
 def main() -> int:
@@ -82,7 +114,7 @@ def main() -> int:
         return 1
     import subprocess
 
-    from mmdx_tpu.config import DiagnosisConfig
+    from mmdx_tpu_torch.config import DiagnosisConfig
     from mmdx_tpu_torch.checkpoints import bridge
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
@@ -111,11 +143,34 @@ def main() -> int:
         log(f"B={b}: classify ms {cls}, generate ms {gen} (beam 4, 180 max steps)")
         batches[b] = (classify, z_img, z_txt)
 
+    turbo = InferenceEngine(bundle, mode="turbo", device=torch.device("cuda", 0))
+    gray_batches = {}
+    for b in (1, 4, 32, 512):
+        images = [rng.integers(0, 256, (256, 256), dtype=np.uint8) for _ in range(b)]
+        texts = [TEXTS[i % len(TEXTS)] for i in range(b)]
+        calls = {
+            mode: (lambda eng=eng, images=images, texts=texts, b=b:
+                   eng.classify_batch(images, texts, pad_to=b))
+            for mode, eng in (("fast", engine), ("turbo", turbo))}
+        for fn in calls.values():
+            fn()  # warm-up (turbo: the first-batch calibration)
+        times = {"fast": [], "turbo": []}
+        for _ in range(3):
+            for mode in ("fast", "turbo", "turbo", "fast"):
+                times[mode].append(synced_ms(calls[mode])[1])
+        log(f"B={b} gray 256x256: classify ms fast {sorted(times['fast'])}, "
+            f"turbo {sorted(times['turbo'])}")
+        gray_batches[b] = calls
+    log(f"turbo first-batch calibration + quantization: {turbo.calibration_ms:.1f} ms")
+
     for b in (4, 32):
         _, z_img, z_txt = batches[b]
         profiled(f"generate B={b}", lambda: engine.generate_report_ids(z_img, z_txt),
                  out_dir)
     profiled("classify B=4", batches[4][0], out_dir)
+    for mode in ("fast", "turbo"):
+        ops = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
+        conv_time(f"{mode} classify gray B=32", ops)
     log(f"tables in {out_dir}")
     return 0
 

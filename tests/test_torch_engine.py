@@ -103,10 +103,12 @@ def test_reference_bundle_pt_loads_like_the_bridge(bundles, port_parity, tmp_pat
 
 
 def test_unported_modes_raise(bundles):
+    """Turbo is ported (it builds on the CPU, W8A8 text blocks on); a mesh
+    still raises."""
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(bundles[1], mode="turbo", device="cpu")
+    turbo = InferenceEngine(bundles[1], mode="turbo", device="cpu")
+    assert turbo.kernels and turbo.text_int8 and turbo.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         InferenceEngine(bundles[1], mode="fast", device="cpu", mesh=object())
 

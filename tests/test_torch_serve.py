@@ -15,8 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax_or_flax():
     """The whole port, an engine built from seeded numpy weights and a
-    classify on uint8 ndarrays, in a fresh interpreter: no jax, no flax, and
-    no mmdx_tpu.io.images (the ndarray path needs no PIL)."""
+    classify on uint8 ndarrays, in a fresh interpreter: no jax, no flax, no
+    module of mmdx_tpu, and no image decode module (the ndarray path decodes
+    nothing)."""
     code = """
 import sys
 import numpy as np
@@ -30,7 +31,8 @@ img = np.random.default_rng(0).integers(0, 256, (70, 90, 3), dtype=np.uint8)
 probs, _, _ = InferenceEngine(bundle, mode="parity", device="cpu").classify_batch(
     [img], ["cough"])
 assert probs.shape == (1, 13), probs.shape
-bad = [m for m in ("jax", "flax", "mmdx_tpu.io.images") if m in sys.modules]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "mmdx_tpu")]
+bad += [m for m in ("mmdx_tpu_torch.io.images",) if m in sys.modules]
 assert not bad, bad
 print("ok")
 """
@@ -68,7 +70,7 @@ def app():
 def test_predict_route(app):
     from PIL import Image
 
-    from mmdx_tpu.config import DISEASES
+    from mmdx_tpu_torch.config import DISEASES
 
     buf = io.BytesIO()
     Image.fromarray(np.random.default_rng(1).integers(
@@ -88,6 +90,28 @@ def test_predict_route(app):
     assert [d["name"] for d in payload["diseases"]] == DISEASES
     assert all(0.0 <= d["probability"] <= 100.0 for d in payload["diseases"])
     assert isinstance(payload["report_text"], str)
+
+
+def test_static_files_stay_inside_the_frontend_dir(tmp_path, monkeypatch):
+    """A sibling directory that shares the frontend directory's name as a
+    prefix (``<static_dir>-evil``) is outside it: 404, not its file (the
+    JAX app's string-prefix check, mmdx_tpu/serve/wsgi.py:416, lets it
+    through)."""
+    from mmdx_tpu_torch.serve.wsgi import make_app
+
+    static = tmp_path / "static"
+    static.mkdir()
+    (static / "index.html").write_text("<html>ok</html>")
+    evil = tmp_path / "static-evil"
+    evil.mkdir()
+    (evil / "secret.txt").write_text("secret")
+    monkeypatch.setenv("MMDX_FRONTEND_DIR", str(static))
+    app = make_app(device="cpu")
+    status, raw = _call(app, "GET", "/")
+    assert status.startswith("200") and raw == b"<html>ok</html>"
+    for path in ("/../static-evil/secret.txt", "/../static/../static-evil/secret.txt"):
+        status, raw = _call(app, "GET", path)
+        assert status.startswith("404") and b"secret" not in raw, path
 
 
 def test_predict_rejects_missing_image(app):
