@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (mmdx_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
+    python3 chip_smoke.py --kernels  # phases 1-2 only (build + kernel checks)
 
 Phases (any failure exits nonzero):
   1. card and build: the card's name and power limit, torch/CUDA/nvcc
@@ -9,8 +10,11 @@ Phases (any failure exits nonzero):
      parallel);
   2. each kernel against its plain PyTorch version on the same inputs at
      serving shapes: max abs/rel error against the stated tolerance (the int8
-     GEMM K5 bit for bit), the median time of each over 30 runs (CUDA
-     events), and the least time the card could take for the same work;
+     GEMM K5 bit for bit; the lm head's argmax exactly, outside reported
+     near-ties), the median time of each over 30 runs (CUDA events), the
+     least time the card could take for the same work, and for the bf16
+     cache read the time of the library call of the same function
+     (scaled_dot_product_attention);
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
@@ -20,8 +24,11 @@ Phases (any failure exits nonzero):
        turbo: the int8 image tower and the W8A8 text blocks, calibrating on
        its first batch: infer on a gray image, classify_batch on 4 gray and
        on 4 RGB images, generate for both; the turbo-vs-fast gap;
-  4. /api/predict/ through the port's WSGI app, in process: fast mode, then
-     turbo mode with a gray PNG upload.
+       decode variants: fast greedy at B=4 and B=64, beam-4 with
+       MMDX_DEFER_KV=0, an MMDX_KV_INT8=1 MMDX_FUSED_LM_HEAD=1 engine under
+       beam-4 and greedy, the fused-lm-head greedy against the dense one;
+  4. /api/predict/ through the port's WSGI app, in process: fast mode,
+     turbo mode with a gray PNG upload, and fast mode with greedy reports.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a card the
@@ -44,6 +51,9 @@ ATOL = RTOL = 4e-2
 # K3's acc, m and l are f32 sums over the same bf16 products as its plain
 # version, so they agree to f32 summation order, far inside this bound
 K3_ATOL, K3_RTOL = 1e-4, 1e-3
+# rows 10 and 11: f32 logits of bf16 products summed over D = 512 on the
+# tensor cores and in the plain f32 product: summation order only
+DEC_TOL = 1e-4
 # published dense peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
 PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
@@ -62,6 +72,14 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                        "mmdx_tpu/ops/pallas_ffn.py:136"),
     "bert_attn_int8": ("mmdx_tpu_torch/csrc/int8_gemm.cu",
                        "mmdx_tpu/ops/pallas_bert_attn.py:177"),
+    "beam_attn": ("mmdx_tpu_torch/csrc/beam_attn.cu",
+                  "mmdx_tpu/ops/pallas_beam_attn.py:123"),
+    "beam_attn_int8": ("mmdx_tpu_torch/csrc/beam_attn.cu",
+                       "mmdx_tpu/ops/pallas_beam_attn.py:351"),
+    "lm_head_greedy": ("mmdx_tpu_torch/csrc/lm_head.cu",
+                       "mmdx_tpu/ops/pallas_lm_head.py:156"),
+    "lm_head_stats": ("mmdx_tpu_torch/csrc/lm_head.cu",
+                      "mmdx_tpu/ops/pallas_lm_head.py:210"),
 }
 
 
@@ -107,12 +125,13 @@ def compare(name: str, got, ref, atol: float = ATOL, rtol: float = RTOL) -> floa
     import torch
 
     got, ref = got.float(), ref.float()
-    if not torch.isfinite(got).all():
+    same = got == ref  # equal infinities (a fully banned chunk's -inf) agree
+    if not (torch.isfinite(got) | same).all():
         fail(f"{name}: kernel output is not finite")
-    diff = (got - ref).abs()
+    diff = torch.where(same, 0.0, (got - ref).abs())
     max_abs = float(diff.max())
     max_rel = float((diff / ref.abs().clamp_min(1e-6)).max())
-    ok = bool((diff <= atol + rtol * ref.abs()).all())
+    ok = bool((same | (diff <= atol + rtol * ref.abs())).all())
     log(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
         f"tol=atol {atol} + rtol {rtol}*|ref| -> {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -283,24 +302,132 @@ def phase_kernels(device) -> dict:
     out["beam_attn_partial"] = (worst, ms, pms) + bound(
         nbytes, bf16_ops=2 * 2 * b * nb * kk * hd)
 
-    # K4: cross-attention + FFN half-step, N=32 rows, T5-small widths
-    n, dm, kc, dff, heads = 32, 512, 4, 2048, 8
-    enc_bias = torch.zeros(n, kc)
-    enc_bias[::3, -1] = -1e9
-    t5_args = (randn(n, dm), 1.0 + randn(dm, scale=0.1, dtype=torch.float32),
-               randn(dm, dm, scale=dm ** -0.5), randn(dm, dm, scale=dm ** -0.5),
-               randn(n, kc, dm), randn(n, kc, dm), enc_bias.to(device),
-               1.0 + randn(dm, scale=0.1, dtype=torch.float32),
-               randn(dm, dff, scale=dm ** -0.5), randn(dff, dm, scale=dff ** -0.5))
-    log(f"K4 cross_ffn_block: hidden [{n}, {dm}] bf16, K={kc}, d_ff={dff}")
-    err = compare("K4", t5_step.cross_ffn_block(*t5_args, heads=heads),
-                  t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
-    ms, pms = timed("K4", lambda: t5_step.cross_ffn_block(*t5_args, heads=heads),
-                    lambda: t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
-    nbytes = 2 * (2 * n * dm + 2 * dm * dm + 2 * n * kc * dm + 2 * dm * dff) \
-        + 4 * (2 * dm + n * kc)
-    out["t5_cross_ffn"] = (err, ms, pms) + bound(
-        nbytes, bf16_ops=2 * n * (2 * dm * dm + 2 * dm * dff + 2 * kc * dm))
+    # K4: cross-attention + FFN half-step at T5-small widths; N=32 rows (beam-4
+    # at B=8) is the recorded site, N=4 and N=64 are greedy's rows at B=4, 64
+    dm, kc, dff, heads = 512, 4, 2048, 8
+    for n in (32, 4, 64):
+        enc_bias = torch.zeros(n, kc)
+        enc_bias[::3, -1] = -1e9
+        t5_args = (randn(n, dm), 1.0 + randn(dm, scale=0.1, dtype=torch.float32),
+                   randn(dm, dm, scale=dm ** -0.5), randn(dm, dm, scale=dm ** -0.5),
+                   randn(n, kc, dm), randn(n, kc, dm), enc_bias.to(device),
+                   1.0 + randn(dm, scale=0.1, dtype=torch.float32),
+                   randn(dm, dff, scale=dm ** -0.5), randn(dff, dm, scale=dff ** -0.5))
+        log(f"K4 cross_ffn_block: hidden [{n}, {dm}] bf16, K={kc}, d_ff={dff}")
+        err = compare(f"K4 N={n}", t5_step.cross_ffn_block(*t5_args, heads=heads),
+                      t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
+        ms, pms = timed(f"K4 N={n}", lambda: t5_step.cross_ffn_block(*t5_args, heads=heads),
+                        lambda: t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
+        nbytes = 2 * (2 * n * dm + 2 * dm * dm + 2 * n * kc * dm + 2 * dm * dff) \
+            + 4 * (2 * dm + n * kc)
+        rec = (err, ms, pms) + bound(
+            nbytes, bf16_ops=2 * n * (2 * dm * dm + 2 * dm * dff + 2 * kc * dm))
+        log(f"  K4 N={n} bound {rec[3]:.4f} ms ({rec[4]})")
+        out.setdefault("t5_cross_ffn", rec)
+    out.update(phase_decode_kernels(device, g))
+    torch.cuda.synchronize()
+    return out
+
+
+def near_tie(top2, tol_abs=DEC_TOL, tol_rel=DEC_TOL):
+    """Where the best two of a set lie within the comparison tolerance (the
+    selection may then go either way): top2 [..., 2], values descending."""
+    return (top2[..., 0] - top2[..., 1]) <= tol_abs + tol_rel * top2[..., 0].abs()
+
+
+def phase_decode_kernels(device, g) -> dict:
+    """Rows 5 and 7 (the normalised cache reads, bf16 and int8) at greedy's
+    B=4, nb=1 and beam's B=8, nb=4 (Lmax 181, 8 heads of 64); rows 10 and 11
+    (the streamed lm head, T5 vocabulary 32128 x 512) at N=4, 64 (greedy)
+    and N=16, 128 (beam). -> records of the last shape of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmdx_tpu_torch.ops import beam_attn, lm_head
+
+    out = {}
+    heads, d, lmax = 8, 64, 181
+    hd = heads * d
+    for b, nb in ((4, 1), (8, 4)):
+        kk, pos = nb * lmax, lmax - 1
+        q = (torch.randn(b, nb, hd, generator=g) * 0.5).to(device, torch.bfloat16)
+        kv32 = torch.randn(b, kk, 2 * hd, generator=g) * 0.5
+        kv = kv32.to(device, torch.bfloat16)
+        t = torch.arange(lmax)
+        bias = (torch.randn(heads, lmax, generator=g) + torch.where(t <= pos, 0.0, -1e9))
+        bias = bias.repeat_interleave(nb, dim=1).to(device)
+        anc = torch.randint(0, nb, (b, nb, lmax), generator=g)
+        anc = torch.where(t[None, None, :] == pos, torch.arange(nb)[None, :, None], anc)
+        live = anc[..., None] == torch.arange(nb)
+        mask = torch.where(live.reshape(b, nb, kk), 0.0, -1e9).to(device)
+        kv8, kvs = beam_attn.quantize_kv_rows(kv32[..., :hd].to(device),
+                                              kv32[..., hd:].to(device), heads)
+        for name, fn, plain, args in (
+                ("beam_attn", beam_attn.beam_decode_attention,
+                 beam_attn.beam_decode_attention_plain, (q, kv, mask, bias)),
+                ("beam_attn_int8", beam_attn.beam_decode_attention_int8,
+                 beam_attn.beam_decode_attention_int8_plain, (q, kv8, kvs, mask, bias))):
+            row = 5 if name == "beam_attn" else 7
+            log(f"row {row} {fn.__name__}: B={b}, nb={nb}, K={kk}, {heads} heads")
+            err = compare(f"row {row} B={b} nb={nb}", fn(*args), plain(*args))
+            ms, pms = median_ms(lambda: fn(*args)), median_ms(lambda: plain(*args))
+            cache_bytes = b * kk * 2 * hd * (2 if row == 5 else 1) + \
+                (b * 2 * heads * kk * 4 if row == 7 else 0)
+            nbytes = cache_bytes + 2 * 2 * b * nb * hd + 4 * (b * nb * kk + heads * kk)
+            bms, by = bound(nbytes, bf16_ops=2 * 2 * b * nb * kk * hd)
+            lib_ms = None
+            if row == 5:  # the library call of the same function, T5-unscaled
+                qh = q.reshape(b, nb, heads, d).transpose(1, 2)
+                kh = kv[..., :hd].reshape(b, kk, heads, d).transpose(1, 2)
+                vh = kv[..., hd:].reshape(b, kk, heads, d).transpose(1, 2)
+                am = (bias[None, :, None, :] + mask[:, None, :, :]).to(torch.bfloat16)
+                lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=am, scale=1.0))
+            log(f"  row {row} kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} (median of 30); "
+                f"bound {bms:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+            out[name] = (err, ms, pms, bms, by, lib_ms)
+
+    v, dm = 32128, 512
+    emb = torch.randn(v, dm, generator=g).to(device, torch.bfloat16)
+    for name, sizes in (("lm_head_greedy", (4, 64)), ("lm_head_stats", (16, 128))):
+        for n in sizes:
+            hidden = (torch.randn(n, dm, generator=g) * dm ** -0.5).to(device, torch.bfloat16)
+            mask = (torch.rand(n, v, generator=g) < 0.001).to(device)
+            mask[:, 1] = True  # the eos column, below min length
+            mask[0, 128:256] = True  # a fully banned chunk
+            log(f"row {10 if name == 'lm_head_greedy' else 11} {name}: hidden [{n}, {dm}], "
+                f"emb [{v}, {dm}] bf16")
+            fn, plain = getattr(lm_head, name), getattr(lm_head, name + "_plain")
+            got, ref = fn(hidden, emb, mask), plain(hidden, emb, mask)
+            dense = lm_head.LazyLogits(hidden, emb).materialize().masked_fill(
+                mask, float("-inf"))
+            if name == "lm_head_greedy":
+                err = compare(f"row 10 N={n} cmax", got[0], ref[0], DEC_TOL, DEC_TOL)
+                ties = near_tie(dense.reshape(n, -1, 128).topk(2, dim=-1).values)
+                bad = int(((got[1] != ref[1]) & ~ties).sum())
+                best = got[0].argmax(-1)
+                tok = best * 128 + got[1].gather(1, best[:, None])[:, 0]
+                row_ties = near_tie(dense.topk(2, dim=-1).values)
+                bad_tok = int(((tok != dense.argmax(-1)) & ~row_ties).sum())
+                log(f"  row 10 N={n}: carg differs at {bad} chunks outside "
+                    f"{int(ties.sum())} near-tie chunks excluded; tokens differ in "
+                    f"{bad_tok} rows outside {int(row_ties.sum())} near-tie rows excluded")
+                if bad or bad_tok:
+                    fail("row 10: carg or the selected token disagrees with the plain version")
+                outb = 8 * n * (v // 128)
+            else:
+                errs = [compare(f"row 11 N={n} {k}", a, r, DEC_TOL, DEC_TOL)
+                        for k, a, r in zip(("logits", "m", "L", "cmax"), got, ref)]
+                err = max(errs)
+                outb = 4 * (n * v + 2 * n + n * (v // 128))
+            ms, pms = (median_ms(lambda: fn(hidden, emb, mask)),
+                       median_ms(lambda: plain(hidden, emb, mask)))
+            nbytes = 2 * v * dm + 2 * n * dm + n * v + outb
+            bms, by = bound(nbytes, bf16_ops=2 * n * v * dm)
+            log(f"  {name} N={n} kernel {ms:.4f} ms, plain {pms:.4f} ms (median of 30); "
+                f"bound {bms:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
+            out[name] = (err, ms, pms, bms, by, None)
     torch.cuda.synchronize()
     return out
 
@@ -377,7 +504,8 @@ def phase_int8_gemm(device, g):
 
 def launch_counters() -> dict:
     """name -> (read the kernel's launch count, set it to 0)."""
-    from mmdx_tpu_torch.ops import beam_attn, bert_attn, fused_ffn, int8_gemm, t5_step
+    from mmdx_tpu_torch.ops import (beam_attn, bert_attn, fused_ffn, int8_gemm,
+                                    lm_head, t5_step)
 
     wrappers = {
         "bert_attn": bert_attn.fused_attention_block,
@@ -386,6 +514,10 @@ def launch_counters() -> dict:
         "t5_cross_ffn": t5_step.cross_ffn_block,
         "fused_ffn_int8": fused_ffn.fused_ffn_ln_int8,
         "bert_attn_int8": bert_attn.fused_attention_block_int8,
+        "beam_attn": beam_attn.beam_decode_attention,
+        "beam_attn_int8": beam_attn.beam_decode_attention_int8,
+        "lm_head_greedy": lm_head.lm_head_greedy,
+        "lm_head_stats": lm_head.lm_head_stats,
     }
     counters = {k: (lambda fn=fn: fn.launches, lambda fn=fn: setattr(fn, "launches", 0))
                 for k, fn in wrappers.items()}
@@ -435,14 +567,32 @@ def check_reports(name: str, ids, gen) -> list[int]:
     return lens
 
 
-def check_decode_counts(name, launches, dec_layers, gen) -> int:
-    steps = launches["beam_attn_partial"] // dec_layers
-    if (launches["beam_attn_partial"] != launches["t5_cross_ffn"]
-            or launches["beam_attn_partial"] % dec_layers
-            or steps < 2 * gen.min_new_tokens):
-        fail(f"{name} decode kernels: expected {dec_layers} launches per step each "
-             f"over >= {2 * gen.min_new_tokens} steps, got {launches}")
+DECODE_KERNELS = ("beam_attn_partial", "beam_attn", "beam_attn_int8",
+                  "lm_head_greedy", "lm_head_stats")
+
+
+def check_decode_counts(name, launches, dec_layers, min_steps, read="beam_attn_partial",
+                        head=None) -> int:
+    """The decode kernels of one route: ``read`` and K4 at ``dec_layers``
+    per step, the lm-head kernel ``head`` (if any) at one per step, every
+    other decode kernel at 0, over at least ``min_steps`` steps. -> steps."""
+    steps = launches[read] // dec_layers
+    others = [k for k in DECODE_KERNELS if k not in (read, head) and launches[k]]
+    if (launches[read] != launches["t5_cross_ffn"] or launches[read] % dec_layers
+            or steps < min_steps or others
+            or (head is not None and launches[head] != steps)):
+        fail(f"{name} decode kernels: expected {dec_layers} launches per step each of "
+             f"{read} and K4{f', 1 of {head}' if head else ''} over >= {min_steps} "
+             f"steps and none of {others}, got {launches}")
     return steps
+
+
+def first_differences(ids, ref) -> list:
+    """Per row, the first position where two id arrays differ, or None."""
+    import numpy as np
+
+    return [int(d[0]) if d.size else None
+            for d in (np.nonzero(a != b)[0] for a, b in zip(ids, ref))]
 
 
 def synced(fn):
@@ -488,7 +638,7 @@ def phase_fast(device, bundle, images, counters):
         fail(f"fast text-tower kernels: expected {2 * layers} launches each of K1, K2 "
              f"({layers} per classify) and none of K5-K7, got {launches}")
     dec_layers = config.report.num_decoder_layers
-    steps = check_decode_counts("fast", launches, dec_layers, gen)
+    steps = check_decode_counts("fast", launches, dec_layers, 2 * gen.min_new_tokens)
     log(f"  fast launch counts as expected: {layers} per classify (K1, K2), "
         f"{dec_layers} per decode step over {steps} steps (K3, K4)")
 
@@ -496,15 +646,12 @@ def phase_fast(device, bundle, images, counters):
     (pprobs, pz_img, pz_txt), pcms = synced(lambda: parity.classify_batch(images, TEXTS))
     pids, pgms = synced(lambda: parity.generate_report_ids(pz_img, pz_txt))
     check_probs("parity classify_batch", pprobs)
-    diverge = []
-    for a, b in zip(ids, pids):
-        d = np.nonzero(a != b)[0]
-        diverge.append(int(d[0]) if d.size else None)
     log(f"  parity classify_batch {pcms:.1f} ms, generate {pgms:.1f} ms; "
         f"max |prob fast - parity| = {float(np.abs(probs - pprobs).max()):.4f}; "
-        f"first differing token position per report (None = identical): {diverge}")
+        f"first differing token position per report (None = identical): "
+        f"{first_differences(ids, pids)}")
     del parity
-    return launches, fast, probs
+    return launches, fast, probs, (z_img, z_txt)
 
 
 def phase_turbo(device, bundle, images, counters, fast, fast_probs):
@@ -545,7 +692,7 @@ def phase_turbo(device, bundle, images, counters, fast, fast_probs):
         fail(f"turbo text tower: expected {layers * classifies} launches each of K6, K7 "
              f"and none of K1, K2, got {launches}")
     dec_layers = config.report.num_decoder_layers
-    steps = check_decode_counts("turbo", launches, dec_layers, gen)
+    steps = check_decode_counts("turbo", launches, dec_layers, 2 * gen.min_new_tokens)
     log(f"  turbo launch counts as expected: 53 per classify (K5), {layers} per "
         f"classify (K6, K7), {dec_layers} per decode step over {steps} steps (K3, K4)")
     fast_gray, _, _ = fast.classify_batch(gray, TEXTS)
@@ -554,10 +701,82 @@ def phase_turbo(device, bundle, images, counters, fast, fast_probs):
     return launches
 
 
+def engine_with(bundle, device, env: dict):
+    """A fast engine built with the decode-layer switches ``env`` set (the
+    engine reads them once, at construction)."""
+    import os
+
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return InferenceEngine(bundle, mode="fast", device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def phase_decode_variants(device, bundle, fast, z4, counters):
+    """Greedy and the decode-layer switches at full width, each run with the
+    launch counts set to 0 before it and read after it: fast greedy at B=4
+    and B=64 (row 5 and K4 at 6 per step), fast beam-4 with MMDX_DEFER_KV=0
+    (row 5, no K3), and one engine with MMDX_KV_INT8=1 MMDX_FUSED_LM_HEAD=1:
+    beam-4 (row 7, row 11 at 1 per step) and greedy (row 7, row 10); and an
+    MMDX_FUSED_LM_HEAD=1 engine's greedy (row 5, row 10), whose ids against
+    the dense greedy's are informative. -> summed launches."""
+    import numpy as np
+
+    config = bundle.config
+    gen, layers = config.generation, config.report.num_decoder_layers
+    z_img, z_txt = z4
+    z64 = tuple(np.repeat(np.asarray(z.float().cpu()), 16, axis=0) for z in z4)
+    total = {}
+    ids_of = {}
+
+    def run(name, engine, greedy, z, read, head=None):
+        reset_counts(counters)
+        ids, ms = synced(lambda: engine.generate_report_ids(*z, greedy=greedy))
+        launches = read_counts(counters)
+        lens = check_reports(name, ids, gen)
+        steps = check_decode_counts(name, launches, layers, gen.min_new_tokens, read, head)
+        log(f"  {name}: B={ids.shape[0]} {ms:.1f} ms, {steps} steps, report tokens "
+            f"{sorted(set(lens))}, launches {launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        ids_of[name] = ids
+
+    run("fast greedy B=4", fast, True, (z_img, z_txt), "beam_attn")
+    run("fast greedy B=64", fast, True, z64, "beam_attn")
+    nodefer = engine_with(bundle, device, {"MMDX_DEFER_KV": "0"})
+    run("beam-4 MMDX_DEFER_KV=0", nodefer, False, (z_img, z_txt), "beam_attn")
+    del nodefer
+    q8 = engine_with(bundle, device, {"MMDX_KV_INT8": "1", "MMDX_FUSED_LM_HEAD": "1"})
+    if not (q8.kv_int8 and q8.fused_lm_head):
+        fail("MMDX_KV_INT8=1 MMDX_FUSED_LM_HEAD=1 did not reach the engine")
+    run("beam-4 int8 KV + fused lm head", q8, False, (z_img, z_txt), "beam_attn_int8",
+        "lm_head_stats")
+    run("greedy int8 KV + fused lm head", q8, True, (z_img, z_txt), "beam_attn_int8",
+        "lm_head_greedy")
+    del q8
+    fused = engine_with(bundle, device, {"MMDX_FUSED_LM_HEAD": "1"})
+    run("greedy fused lm head B=4", fused, True, (z_img, z_txt), "beam_attn",
+        "lm_head_greedy")
+    del fused
+    diverge = first_differences(ids_of["greedy fused lm head B=4"], ids_of["fast greedy B=4"])
+    log(f"  fused-lm-head greedy vs dense greedy, B=4: first differing token position "
+        f"per report (None = identical): {diverge} (informative)")
+    return total
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
-def phase_server(bundle, device, mode: str, n: int, gray: bool) -> None:
+def phase_server(bundle, device, mode: str, n: int, gray: bool,
+                 greedy: bool = False) -> None:
     import io
 
     import numpy as np
@@ -567,7 +786,8 @@ def phase_server(bundle, device, mode: str, n: int, gray: bool) -> None:
     from mmdx_tpu_torch.serve.wsgi import make_app
 
     app = make_app(bundle=bundle, engine_mode=mode, generate_reports=True,
-                   device=device)
+                   greedy=greedy, device=device)
+    label = f"{mode}{' greedy' if greedy else ''}"
     rng = np.random.default_rng(SEED + 1)
     buf = io.BytesIO()
     shape = (600, 480) if gray else (600, 480, 3)
@@ -594,8 +814,8 @@ def phase_server(bundle, device, mode: str, n: int, gray: bool) -> None:
             if not status["s"].startswith("200") or \
                     [d["name"] for d in payload.get("diseases", [])] != DISEASES or \
                     not isinstance(payload.get("report_text"), str):
-                fail(f"/api/predict/ ({mode}) answered {status['s']}: {raw[:300]!r}")
-            log(f"  /api/predict/ {mode} #{i}: 200 in {ms:.1f} ms, 13 diseases, "
+                fail(f"/api/predict/ ({label}) answered {status['s']}: {raw[:300]!r}")
+            log(f"  /api/predict/ {label} #{i}: 200 in {ms:.1f} ms, 13 diseases, "
                 f"report {len(payload['report_text'])} chars")
     finally:
         if app._batcher is not None:
@@ -612,6 +832,9 @@ def main() -> int:
     card = phase_card_and_build()
     device = torch.device("cuda", 0)
     kernel_stats = phase_kernels(device)
+    if sys.argv[1:] == ["--kernels"]:
+        log("kernel checks passed (phases 1-2 only)")
+        return 0
 
     from mmdx_tpu_torch.checkpoints import bridge
     from mmdx_tpu_torch.config import DiagnosisConfig
@@ -628,21 +851,23 @@ def main() -> int:
     images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(4)]
     counters = launch_counters()
     log("fast path")
-    fast_launches, fast, fast_probs = phase_fast(device, bundle, images, counters)
+    fast_launches, fast, fast_probs, z4 = phase_fast(device, bundle, images, counters)
     log("turbo path")
     turbo_launches = phase_turbo(device, bundle, images, counters, fast, fast_probs)
+    log("decode variants: greedy and the decode-layer switches")
+    variant_launches = phase_decode_variants(device, bundle, fast, z4, counters)
     del fast
     log("server: /api/predict/ through mmdx_tpu_torch.serve.wsgi")
     phase_server(bundle, device, "fast", 3, gray=False)
     phase_server(bundle, device, "turbo", 2, gray=True)
+    phase_server(bundle, device, "fast", 1, gray=False, greedy=True)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": fast_launches[name] + turbo_launches[name],
-         "max_abs_err": kernel_stats[name][0], "ms": kernel_stats[name][1],
-         "plain_ms": kernel_stats[name][2], "bound_ms": kernel_stats[name][3],
-         "bound_by": kernel_stats[name][4], "library_ms": None}
-        for name in KERNELS
+         "launches": fast_launches[name] + turbo_launches[name] + variant_launches[name],
+         "max_abs_err": rec[0], "ms": rec[1], "plain_ms": rec[2], "bound_ms": rec[3],
+         "bound_by": rec[4], "library_ms": rec[5] if len(rec) > 5 else None}
+        for name, rec in ((name, kernel_stats[name]) for name in KERNELS)
     ]}
     log(f"card: {card}")
     print(json.dumps(record), flush=True)

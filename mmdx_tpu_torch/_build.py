@@ -34,6 +34,14 @@ SIGNATURES = {
     "mmdx_bert_attn": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, kv, mask, bias, acc, m, l, B, nb, K, heads, head_dim, stream
     "mmdx_beam_attn_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, kv, mask, bias, ctx, B, nb, K, heads, head_dim, stream
+    "mmdx_beam_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, kv, kvs, mask, bias, ctx, B, nb, K, heads, head_dim, stream
+    "mmdx_beam_attn_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # hidden, emb, mask, cmax, carg, N, V, D, stream
+    "mmdx_lm_head_greedy": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # hidden, emb, mask, logits, cmax, pmax, psum, m, L, N, V, D, stream
+    "mmdx_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, ck, cv, enc_bias, ctx, N, KK, heads, d, stream
     "mmdx_t5_cross_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qkv, kmask, ctx (f32), B, L, H, heads, scale, stream

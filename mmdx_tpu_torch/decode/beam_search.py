@@ -1,7 +1,8 @@
 """HF-parity beam search over the ancestry (never reordered) KV cache.
 
 Port of ``mmdx_tpu/decode/beam_search.py``: ``beam_search`` (``:355``) with
-``cache_mode="ancestry"``, ``beam_expand`` (``:626``) and
+``cache_mode="ancestry"``, the streamed-lm-head route of the candidate top-k
+(``fused_candidate_topk``, ``:165-195``), ``beam_expand`` (``:626``) and
 ``make_generation_kwargs`` (``:631``). The rules are the tensorized beam
 search of transformers >= 4.50:
 
@@ -16,11 +17,13 @@ search of transformers >= 4.50:
 
 The loop runs on the host, one step per iteration, with a host sync per step
 for the stopping rule. The TPU workarounds of the JAX version are not ported:
-candidates come from ``torch.topk`` over f32 log-probs, rows move with
-``gather``, the cache is one full-length buffer.
+candidates come from ``torch.topk`` over f32 log-probs (ties ordered by
+index, ``topk``), rows move with ``gather``, the cache is one full-length
+buffer.
 
-``step_fn(tokens [N], pos, anc [B, nb, Lmax]) -> f32 logits [N, V]`` runs
-one decoder step and writes its cache rows in place.
+``step_fn(tokens [N], pos, anc [B, nb, Lmax]) -> f32 logits [N, V]`` (or
+``LazyLogits``, with the fused lm head) runs one decoder step and writes its
+cache rows in place.
 """
 from __future__ import annotations
 
@@ -30,9 +33,22 @@ import torch
 
 from mmdx_tpu_torch.config import GenerationConfig
 from mmdx_tpu_torch.decode.ngram import banned_ngram_mask
+from mmdx_tpu_torch.ops import lm_head
 
 NEG = -1e9
 F32 = torch.float32
+
+
+def topk(x, k: int):
+    """Top-k of each row of ``x`` [R, W], sorted, equal values in ascending
+    index order (``lax.top_k``'s and ``topk_small``'s rule, which
+    ``torch.topk`` does not promise). Exact: when the k+1 largest values are
+    all distinct, the top k and their order are unique; otherwise a stable
+    sort of the rows orders them."""
+    vals, idx = torch.topk(x, min(k + 1, x.shape[1]), dim=1)
+    if bool((vals[:, 1:] == vals[:, :-1]).any()):
+        vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
 def candidate_topk(logits, beam_scores, banned, mask_eos: bool, eos_token_id: int,
@@ -41,7 +57,15 @@ def candidate_topk(logits, beam_scores, banned, mask_eos: bool, eos_token_id: in
     nb*V candidates, with the eos column masked while below min length and
     the banned n-gram followers masked. The f32 op order is the JAX chain's:
     ``((masked - max) - logsumexp) + beam_score``.
-    Returns (scores [B, k], flat index [B, k] into nb*V)."""
+    Returns (scores [B, k], flat index [B, k] into nb*V).
+
+    ``LazyLogits`` over a chunk-aligned vocabulary take the streamed route
+    (``lazy_candidate_topk``); others are materialized."""
+    if lm_head.fused_route(logits):
+        return lazy_candidate_topk(logits, beam_scores, banned, mask_eos,
+                                   eos_token_id, k, b, nb)
+    if isinstance(logits, lm_head.LazyLogits):
+        logits = logits.materialize()
     n, v = logits.shape
     m = logits.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
@@ -52,7 +76,36 @@ def candidate_topk(logits, beam_scores, banned, mask_eos: bool, eos_token_id: in
     if banned is not None:
         a = a.masked_fill(banned, float("-inf"))
     adjusted = ((a - m) - lse) + beam_scores.reshape(n, 1)
-    return torch.topk(adjusted.reshape(b, nb * v), k, dim=1)
+    return topk(adjusted.reshape(b, nb * v), k)
+
+
+def lazy_candidate_topk(logits, beam_scores, banned, mask_eos: bool, eos_token_id: int,
+                        k: int, b: int, nb: int):
+    """``candidate_topk`` through the streamed lm head (port of
+    ``fused_candidate_topk:165-195``): ``lm_head_stats`` gives the logits, m
+    and L over the raw logits and the masked chunk max; the chunk scores
+    ``((cmax - m) - L) + s`` pick the top k chunks of each sample, and the
+    same chain redone on those chunks' masked logits gives the top k. Any
+    top-k candidate lies in a chunk whose max is at least its score, so the
+    selection is the dense route's."""
+    n, v = logits.shape
+    c, ch = v // lm_head.CHUNK, lm_head.CHUNK
+    mask = (torch.zeros((n, v), dtype=torch.bool, device=beam_scores.device)
+            if banned is None else banned.clone(memory_format=torch.contiguous_format))
+    if mask_eos:
+        mask[:, eos_token_id] = True
+    logits_p, m, lse, cmax_p = lm_head.lm_head_stats(logits.hidden, logits.emb, mask)
+    s_row = beam_scores.reshape(n)
+    cmax = ((cmax_p - m[:, None]) - lse[:, None]) + s_row[:, None]
+    cidx = topk(cmax.reshape(b, nb * c), k)[1].sort(dim=1).values
+    rows = torch.arange(b, device=cidx.device)[:, None] * nb + cidx // c  # [B, k]
+    lin = rows * c + cidx % c
+    gl = logits_p.reshape(n * c, ch)[lin]  # [B, k, 128]
+    adj = gl.masked_fill(mask.reshape(n * c, ch)[lin], float("-inf"))
+    adj = ((adj - m[rows][..., None]) - lse[rows][..., None]) + s_row[rows][..., None]
+    vals, gi = topk(adj.reshape(b, k * ch), k)
+    sel = cidx.gather(1, gi // ch)
+    return vals, (sel // c) * v + (sel % c) * ch + gi % ch
 
 
 def gather_rows(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

@@ -51,13 +51,16 @@ class DiagnosisModel(nn.Module):
         logits = self.fusion.disease_head(self.fusion.fuse(z_img, z_txt))
         return torch.sigmoid(logits.to(torch.float32)), z_img, z_txt
 
-    def prepare_generation(self, z_img, z_txt, max_len: int, beam_width: int) -> dict:
-        return self.fusion.cond_and_cache(z_img, z_txt, max_len, beam_width)
+    def prepare_generation(self, z_img, z_txt, max_len: int, beam_width: int,
+                           kv_int8: bool = False) -> dict:
+        return self.fusion.cond_and_cache(z_img, z_txt, max_len, beam_width, kv_int8)
 
     def decode_step_beam(self, token_ids, pos: int, cache, anc, static_kv,
-                         self_bias, enc_mask, kernels: bool = False):
+                         self_bias, enc_mask, kernels: bool = False, defer: bool = True,
+                         lazy_logits: bool = False):
         return self.fusion.report_model.decode_step_beam(
-            token_ids, pos, cache, anc, static_kv, self_bias, enc_mask, kernels)
+            token_ids, pos, cache, anc, static_kv, self_bias, enc_mask, kernels, defer,
+            lazy_logits)
 
     def cast_(self, dtype: torch.dtype) -> "DiagnosisModel":
         """Cast the weights to the compute dtype in place, except the modules

@@ -38,11 +38,12 @@ class FusionModel(nn.Module):
         return cond.reshape(z_fuse.shape[0], self.cfg.n_cond_tokens,
                             self.report_cfg.d_model)
 
-    def cond_and_cache(self, z_img, z_txt, max_len: int, beam_width: int) -> dict:
+    def cond_and_cache(self, z_img, z_txt, max_len: int, beam_width: int,
+                       kv_int8: bool = False) -> dict:
         z_fuse = self.fuse(z_img, z_txt)
         cond = self.make_cond_tokens(z_fuse)
         cache, static_kv = self.report_model.init_cache(cond.shape[0], max_len, cond,
-                                                        beam_width)
+                                                        beam_width, kv_int8)
         return {
             "disease_logits": self.disease_head(z_fuse),
             "cond": cond,

@@ -1,8 +1,9 @@
-"""T5-small report decoder: the KV-cached beam decode step.
+"""T5-small report decoder: the KV-cached decode step (beam and greedy).
 
 Port of the decode-step path of ``mmdx_tpu/models/t5.py``:
 ``relative_position_bucket`` / ``compute_position_bias`` (``:32-75``),
-``RMSNorm`` (``:76``), ``T5Attention.step_beam`` (``:201-343``),
+``RMSNorm`` (``:76``), ``T5Attention.step_beam`` (``:201-343``, with the
+int8 cache's quantize-on-write ``:240-259``),
 ``T5DecoderLayer.step_beam`` (``:452-469``), ``T5.init_cache`` (``:584-633``),
 ``decode_self_bias`` (``:635-648``), ``decode_step_beam`` (``:679-741``) and
 ``_lm_logits_step``. The T5 encoder is not on the serving path (the decoder
@@ -13,18 +14,28 @@ Beam decoding uses the ancestry cache: per layer one physical buffer
 ``[B, nb*Lmax, 2*h*d]``, position-major (row ``t*nb + j`` is slot j's token
 t, k|v packed in the minor dim), never reordered; an additive ancestry mask
 ``[B, nb, nb*Lmax]`` resolves each beam's history. Cache rows are written in
-place at ``pos``. Two routes:
+place at ``pos``. Routes:
 
 * ``kernels=False`` (parity): write the step's k|v, then attend over the
   whole cache with the own column live (the JAX XLA path);
-* ``kernels=True`` (fast): deferred writes — the beam-attention kernel
-  (ops/beam_attn.py) reads the OLD cache with the own column masked, the
-  step's own token is composed from the softmax partials here, and the
-  cache write follows the read; the cross-attention + FFN half-step runs
-  through ops/t5_step.py.
+* ``kernels=True`` (fast), deferred writes (beam, bf16 cache, the default):
+  the partials kernel (ops/beam_attn.py) reads the OLD cache with the own
+  column masked, the step's own token is composed from the softmax partials
+  here, and the cache write follows the read;
+* ``kernels=True`` otherwise (greedy, ``MMDX_DEFER_KV=0``, the int8 cache):
+  write, then the normalised read kernel over the written cache, bf16 or
+  int8 (``kv_int8``: rows quantized on write with per-(row, head) scales).
 
-No segmented cache growth or 8-row alignment padding: those were TPU layout
-fixes. Step logits stay f32.
+In fast mode the cross-attention + FFN half-step runs through ops/t5_step.py.
+With ``lazy_logits`` the step returns ``LazyLogits`` and the selection runs
+the tied head through ops/lm_head.py.
+
+Greedy runs over the same flat cache at nb = 1 with an all-zero ancestry
+(the JAX engine's ``flat_greedy`` layout, token-identical to its heads-major
+one, ``tests/test_kv_int8.py:200-219``). The heads-major ``decode_step`` /
+``T5Attention.step`` / ``attend`` cache was a TPU layout choice and is not
+ported. No segmented cache growth or 8-row alignment padding: those were TPU
+layout fixes. Step logits stay f32.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from torch import nn
 from mmdx_tpu_torch.config import ReportDecoderConfig
 from mmdx_tpu_torch.models.layers import Dense, param
 from mmdx_tpu_torch.ops import beam_attn, t5_step
+from mmdx_tpu_torch.ops.lm_head import LazyLogits
 
 NEG_INF = -1e9
 F32 = torch.float32
@@ -106,18 +118,28 @@ class T5Attention(nn.Module):
         self.v = Dense(cfg.d_model, inner, bias=False)
         self.o = Dense(inner, cfg.d_model, bias=False)
 
-    def step_beam(self, y, cache_kv, pos: int, mask, bias_k, deferred: bool):
+    def step_beam(self, y, cache: dict, pos: int, mask, bias_k, kernels: bool,
+                  deferred: bool):
         """One-token self-attention over the physical cache.
 
-        y [N, D]; cache_kv [B, nb*Lc, 2*h*d] (row pos*nb + j written here, in
+        y [N, D]; cache {"kv": [B, nb*Lc, 2*h*d]} bf16, or int8 with
+        {"kvs": [B, 2h, nb*Lc]} f32 scales (row pos*nb + j written here, in
         place); mask [B, nb, nb*Lc]; bias_k [h, nb*Lc] -> [N, D]."""
-        b, nb, kk = mask.shape
+        b, nb, _ = mask.shape
         h, d = self.cfg.num_heads, self.cfg.d_kv
         hd = h * d
         q = self.q(y).reshape(b, nb, hd)
         k_new = self.k(y).reshape(b, nb, hd)
         v_new = self.v(y).reshape(b, nb, hd)
         rows = slice(pos * nb, (pos + 1) * nb)
+        cache_kv = cache["kv"]
+        if "kvs" in cache:  # int8 cache: quantize on write, then the int8 read
+            cache_kv[:, rows], cache["kvs"][:, :, rows] = beam_attn.quantize_kv_rows(
+                k_new, v_new, h)
+            read = (beam_attn.beam_decode_attention_int8 if kernels
+                    else beam_attn.beam_decode_attention_int8_plain)
+            ctx = read(q, cache_kv, cache["kvs"], mask, bias_k)
+            return self.o(ctx.reshape(b * nb, hd))
         if deferred:
             acc, m, l = beam_attn.beam_decode_attention_partial(q, cache_kv, mask,
                                                                 bias_k)
@@ -133,14 +155,9 @@ class T5Attention(nn.Module):
             cache_kv[:, rows] = torch.cat([k_new, v_new], dim=-1)
             return self.o(ctx.reshape(b * nb, hd))
         cache_kv[:, rows] = torch.cat([k_new, v_new], dim=-1)
-        kh = cache_kv[..., :hd].reshape(b, kk, h, d)
-        vh = cache_kv[..., hd:].reshape(b, kk, h, d)
-        scores = torch.einsum("bihd,bkhd->bhik", q.reshape(b, nb, h, d).to(F32),
-                              kh.to(F32))
-        scores = scores + bias_k[None, :, None, :] + mask[:, None, :, :]
-        probs = torch.softmax(scores, dim=-1).to(y.dtype)
-        ctx = torch.einsum("bhik,bkhd->bihd", probs.to(F32), vh.to(F32)).to(y.dtype)
-        return self.o(ctx.reshape(b * nb, hd))
+        read = (beam_attn.beam_decode_attention if kernels
+                else beam_attn.beam_decode_attention_plain)
+        return self.o(read(q, cache_kv, mask, bias_k).reshape(b * nb, hd))
 
 
 class T5DecoderLayer(nn.Module):
@@ -155,12 +172,12 @@ class T5DecoderLayer(nn.Module):
         self.ffn_wi = Dense(cfg.d_model, cfg.d_ff, bias=False)
         self.ffn_wo = Dense(cfg.d_ff, cfg.d_model, bias=False)
 
-    def step_beam(self, hidden, cache_kv, static_kv, pos: int, mask, bias_k,
-                  enc_bias, kernels: bool):
-        """hidden [N, D] -> [N, D]; cache_kv updated in place."""
+    def step_beam(self, hidden, cache, static_kv, pos: int, mask, bias_k,
+                  enc_bias, kernels: bool, deferred: bool):
+        """hidden [N, D] -> [N, D]; the cache updated in place."""
         y = self.self_ln(hidden)
-        hidden = hidden + self.self_attn.step_beam(y, cache_kv, pos, mask, bias_k,
-                                                   deferred=kernels)
+        hidden = hidden + self.self_attn.step_beam(y, cache, pos, mask, bias_k,
+                                                   kernels, deferred)
         block = t5_step.cross_ffn_block if kernels else t5_step.cross_ffn_block_plain
         return block(hidden, self.cross_ln.scale, self.cross_attn.q.kernel,
                      self.cross_attn.o.kernel, static_kv["ck2"], static_kv["cv2"],
@@ -201,13 +218,23 @@ class T5(nn.Module):
             self.encoder_final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_eps)
         self._lm_f32 = None
 
-    def init_cache(self, batch: int, max_len: int, cond, beam_width: int):
-        """-> (cache: per layer [batch/nb, nb*max_len, 2*h*d] zeros,
-        static_kv: per layer {"ck2", "cv2"} [batch, K, h*d] cross k/v)."""
+    def init_cache(self, batch: int, max_len: int, cond, beam_width: int,
+                   kv_int8: bool = False):
+        """-> (cache: per layer {"kv": [batch/nb, nb*max_len, 2*h*d] zeros},
+        in cond's dtype, or int8 with {"kvs": [batch/nb, 2h, nb*max_len]} f32
+        scales when ``kv_int8`` (``t5.py:609-617``); static_kv: per layer
+        {"ck2", "cv2"} [batch, K, h*d] cross k/v)."""
         cfg = self.cfg
         shape = (batch // beam_width, beam_width * max_len, 2 * cfg.num_heads * cfg.d_kv)
-        cache = [torch.zeros(shape, dtype=cond.dtype, device=cond.device)
-                 for _ in self.decoder_layers]
+        dev = cond.device
+        if kv_int8:
+            cache = [{"kv": torch.zeros(shape, dtype=torch.int8, device=dev),
+                      "kvs": torch.zeros((shape[0], 2 * cfg.num_heads, shape[1]),
+                                         dtype=F32, device=dev)}
+                     for _ in self.decoder_layers]
+        else:
+            cache = [{"kv": torch.zeros(shape, dtype=cond.dtype, device=dev)}
+                     for _ in self.decoder_layers]
         static_kv = [{"ck2": layer.cross_attn.k(cond).contiguous(),
                       "cv2": layer.cross_attn.v(cond).contiguous()}
                      for layer in self.decoder_layers]
@@ -241,19 +268,27 @@ class T5(nn.Module):
         return self.lm_head(hidden).to(F32)
 
     def decode_step_beam(self, token_ids, pos: int, cache, anc, static_kv,
-                         self_bias_full, encoder_mask, kernels: bool = False):
-        """token_ids [N] at position ``pos`` -> f32 logits [N, V]; ``cache``
+                         self_bias_full, encoder_mask, kernels: bool = False,
+                         defer: bool = True, lazy_logits: bool = False):
+        """token_ids [N] at position ``pos`` -> f32 logits [N, V], or a
+        ``LazyLogits`` when ``lazy_logits`` (tied embeddings only); ``cache``
         (per-layer physical buffers) is updated in place. ``anc [B, nb, Lmax]``
-        maps each beam's history position to the physical slot that wrote it."""
+        maps each beam's history position to the physical slot that wrote it
+        (greedy: nb = 1, all zeros).
+
+        With ``kernels`` the reads run the hand-written kernels: the deferred
+        partials when ``defer``, nb >= 2 and the cache is bf16
+        (``t5.py:710-712``), else the normalised read, bf16 or int8."""
         b, nb, _ = anc.shape
-        cap = cache[0].shape[1] // nb
+        cap = cache[0]["kv"].shape[1] // nb
         dev = anc.device
+        deferred = kernels and defer and nb >= 2 and "kvs" not in cache[0]
         hidden = F.embedding(token_ids.reshape(-1), self.shared)
         bias_row = self_bias_full[0, :, pos, :cap]  # [h, cap]
         enc_bias = (1.0 - encoder_mask.to(F32)) * NEG_INF  # [N, K]
-        # own column: live in the cache read (parity) or dead, composed from
-        # the partials (deferred, kernels=True)
-        own = (torch.full((nb,), -1, dtype=anc.dtype, device=dev) if kernels
+        # own column: live in the cache read, or dead and composed from the
+        # partials (deferred)
+        own = (torch.full((nb,), -1, dtype=anc.dtype, device=dev) if deferred
                else torch.arange(nb, dtype=anc.dtype, device=dev))
         col = torch.arange(cap, device=dev)
         anc_eff = torch.where(col[None, None, :] == pos, own[None, :, None],
@@ -264,5 +299,9 @@ class T5(nn.Module):
         for layer, layer_cache, layer_static in zip(self.decoder_layers, cache,
                                                     static_kv):
             hidden = layer.step_beam(hidden, layer_cache, layer_static, pos, mask,
-                                     bias_k, enc_bias, kernels)
-        return self.lm_logits_step(self.decoder_final_ln(hidden))
+                                     bias_k, enc_bias, kernels, deferred)
+        hidden = self.decoder_final_ln(hidden)
+        if lazy_logits and self.cfg.tie_word_embeddings:
+            # the selection runs the head itself (ops/lm_head.py)
+            return LazyLogits(hidden * (self.cfg.d_model ** -0.5), self.shared)
+        return self.lm_logits_step(hidden)

@@ -1,7 +1,14 @@
-"""Beam self-attention partials over the flat physical KV cache.
+"""Beam self-attention over the flat physical KV cache.
 
-Port of ``mmdx_tpu/ops/pallas_beam_attn.py:beam_decode_attention_partial``:
-unnormalised softmax partials over the OLD cache,
+Three reads, ports of ``mmdx_tpu/ops/pallas_beam_attn.py``: the softmax
+partials over the old cache for deferred writes (``beam_decode_attention_partial``,
+below), and the normalised read over the written cache, bf16
+(``beam_decode_attention``) or int8 with per-(row, head) scales
+(``beam_decode_attention_int8``), with the int8 cache's quantize-on-write
+(``quantize_kv_rows``), at the end of the module.
+
+``beam_decode_attention_partial`` returns unnormalised softmax partials over
+the OLD cache,
 
     acc [B, nb, h*d] f32 = sum_k exp(s_k - m) . v_k
     m   [B, nb, h]   f32 = max_k s_k
@@ -84,3 +91,132 @@ def beam_decode_attention_partial(q, kv, mask, bias):
 
 
 beam_decode_attention_partial.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The normalised read over the WRITTEN cache (own column live): bf16 and int8
+# ---------------------------------------------------------------------------
+def _softmax_ctx(s, vh, out_dtype, sv=None):
+    """f32 scores [B, h, nb, K] -> ctx [B, nb, h*d] in ``out_dtype``:
+    p = (exp(s - max) / sum) (times the V scales ``sv [B, h, K]``) rounded to
+    ``out_dtype``, then the f32 product with ``vh [B, K, h, d]``."""
+    b, h, nb, _ = s.shape
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    if sv is not None:
+        p = p * sv[:, :, None, :]
+    ctx = torch.einsum("bhik,bkhd->bihd", p.to(out_dtype).to(F32), vh.to(F32))
+    return ctx.reshape(b, nb, -1).to(out_dtype)
+
+
+def beam_decode_attention_plain(q, kv, mask, bias):
+    """Plain PyTorch version with the Pallas body's rounding points
+    (``pallas_beam_attn.py:81-92``): f32 scores and softmax, p rounded to
+    q.dtype, f32 p.v, ctx in q.dtype."""
+    b, nb, hd = q.shape
+    kk, h = kv.shape[1], bias.shape[0]
+    d = hd // h
+    kh = kv[..., :hd].reshape(b, kk, h, d).to(F32)
+    s = torch.einsum("bihd,bkhd->bhik", q.reshape(b, nb, h, d).to(F32), kh)
+    s = s + bias.to(F32)[None, :, None, :] + mask.to(F32)[:, None, :, :]
+    return _softmax_ctx(s, kv[..., hd:].reshape(b, kk, h, d), q.dtype)
+
+
+def beam_decode_attention_int8_plain(q, kv, kvs, mask, bias):
+    """Plain PyTorch version of the int8 read (``pallas_beam_attn.py:287-334``):
+    s = (q . k_i8) * sk, p = (softmax * sv) rounded to q.dtype, ctx = p . v_i8."""
+    b, nb, hd = q.shape
+    kk, h = kv.shape[1], bias.shape[0]
+    d = hd // h
+    kh = kv[..., :hd].reshape(b, kk, h, d).to(F32)
+    s = torch.einsum("bihd,bkhd->bhik", q.reshape(b, nb, h, d).to(F32), kh)
+    s = s * kvs[:, :h, None, :]
+    s = s + bias.to(F32)[None, :, None, :] + mask.to(F32)[:, None, :, :]
+    return _softmax_ctx(s, kv[..., hd:].reshape(b, kk, h, d), q.dtype, kvs[:, h:])
+
+
+def quantize_kv_rows(k_new, v_new, heads: int):
+    """Quantize-on-write of the int8 cache (``models/t5.py:244-259``): per
+    (row, head) scale s = max(amax, 1e-12) / 127, q = clip(round(x / s)).
+    k_new, v_new [B, nb, h*d] -> (rows int8 [B, nb, 2*h*d], scales f32
+    [B, 2h, nb], K scales then V scales). Divides by a tensor on the same
+    device, as the JAX divide does (``int8_gemm.div_exact``)."""
+    from mmdx_tpu_torch.ops.int8_gemm import div_exact
+
+    b, nb, hd = k_new.shape
+    out, scales = [], []
+    for x in (k_new, v_new):
+        xr = x.reshape(b, nb, heads, hd // heads).to(F32)
+        s = div_exact(torch.clamp_min(xr.abs().amax(-1), 1e-12), 127.0)
+        out.append(torch.clamp(torch.round(xr / s[..., None]), -127, 127).reshape(b, nb, hd))
+        scales.append(s.transpose(1, 2))
+    return torch.cat(out, dim=-1).to(torch.int8), torch.cat(scales, dim=1)
+
+
+def _check_read(q, kv, mask, bias, kv_dtype):
+    b, nb, hd = q.shape
+    kk, h = kv.shape[1], bias.shape[0]
+    if hd != h * HEAD_DIM or not 0 < nb <= MAX_BEAMS:
+        raise ValueError(f"beam_decode_attention: needs head_dim {HEAD_DIM} and "
+                         f"nb <= {MAX_BEAMS}, got hd={hd}, h={h}, nb={nb}")
+    _build.require(q, "q", torch.bfloat16, (b, nb, hd))
+    _build.require(kv, "kv", kv_dtype, (b, kk, 2 * hd))
+    _build.require(mask, "mask", F32, (b, nb, kk))
+    _build.require(bias, "bias", F32, (h, kk))
+    return b, nb, kk, h
+
+
+def beam_decode_attention(q, kv, mask, bias):
+    """q [B, nb, h*d]; kv [B, K, 2*h*d]; mask [B, nb, K] f32; bias [h, K] f32
+    -> ctx [B, nb, h*d] in q.dtype: the normalised read over the written
+    cache (port of ``pallas_beam_attn.beam_decode_attention``; at nb = 1 the
+    flat greedy read).
+
+    Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn``), one launch,
+    one block per (sample, head), the partials kernel's passes with the
+    softmax normalised in shared memory and ctx rounded to bf16. Bounded by
+    bytes: the whole cache once per layer per step (B=8, nb=4, K=724: 11.9
+    MB; greedy B=4, K=181: 1.5 MB), each k and v row streamed once.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16, d = 64, nb <= 8) or raise."""
+    if q.device.type == "cpu":
+        return beam_decode_attention_plain(q, kv, mask, bias)
+    b, nb, kk, h = _check_read(q, kv, mask, bias, torch.bfloat16)
+    ctx = torch.empty_like(q)
+    _build.check(_build.lib().mmdx_beam_attn(
+        q.data_ptr(), kv.data_ptr(), mask.data_ptr(), bias.data_ptr(), ctx.data_ptr(),
+        b, nb, kk, h, HEAD_DIM, _build.stream(q)), "beam_attn")
+    beam_decode_attention.launches += 1
+    return ctx
+
+
+beam_decode_attention.launches = 0
+
+
+def beam_decode_attention_int8(q, kv, kvs, mask, bias):
+    """``beam_decode_attention`` over the int8 cache: kv [B, K, 2*h*d] int8,
+    kvs [B, 2h, K] f32 per-(row, head) scales (port of
+    ``pallas_beam_attn.beam_decode_attention_int8``).
+
+    Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn_int8``): the
+    bf16 read's kernel instantiated for int8 rows (8-byte loads of the key
+    slices), the K scale applied to each score and the V scale folded into
+    the probabilities, as in the Pallas body. Bounded by bytes: half the bf16
+    cache plus 8 bytes of scales per row and head.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return beam_decode_attention_int8_plain(q, kv, kvs, mask, bias)
+    b, nb, kk, h = _check_read(q, kv, mask, bias, torch.int8)
+    _build.require(kvs, "kvs", F32, (b, 2 * h, kk))
+    ctx = torch.empty_like(q)
+    _build.check(_build.lib().mmdx_beam_attn_int8(
+        q.data_ptr(), kv.data_ptr(), kvs.data_ptr(), mask.data_ptr(), bias.data_ptr(),
+        ctx.data_ptr(), b, nb, kk, h, HEAD_DIM, _build.stream(q)), "beam_attn_int8")
+    beam_decode_attention_int8.launches += 1
+    return ctx
+
+
+beam_decode_attention_int8.launches = 0

@@ -1,4 +1,4 @@
-"""InferenceEngine: batched classification and beam-4 report generation.
+"""InferenceEngine: batched classification and report generation (beam-4 or greedy).
 
 Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
 (``prep_images``, ``prep_texts``, ``classify_batch``, ``generate_report_ids``,
@@ -7,11 +7,13 @@ Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
 * ``parity`` — f32 weights and math, host-exact PIL-equivalent
   preprocessing, the plain PyTorch version of every op; TF32 is switched off
   for matmuls and cuDNN convolutions;
-* ``fast`` — bf16 towers, on-device resize + crop + normalize, and the four
+* ``fast`` — bf16 towers, on-device resize + crop + normalize, and the
   hand-written kernels: the BERT attention block and FFN block in the text
-  tower, the beam self-attention partials (deferred cache writes) and the T5
-  cross-attention + FFN half-step in the decode step. The kernels are chosen
-  by the mode alone; on CPU tensors their wrappers run the plain versions;
+  tower; in the decode step the T5 cross-attention + FFN half-step and the
+  self-attention read (the softmax partials with deferred cache writes for
+  beam, the normalised read over the written cache for greedy). The kernels
+  are chosen by the mode and the switches below; on CPU tensors their
+  wrappers run the plain versions;
 * ``turbo`` — fast mode with the static-PTQ int8 image tower
   (``models/resnet_int8``, every conv through the int8 GEMM kernel), the
   text tower's blocks in their W8A8 form (``MMDX_TEXT_INT8=0`` keeps them
@@ -20,7 +22,21 @@ Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
   preprocessing into the folded gray stem. Activation scales come from
   ``bundle.metadata["int8_scales"]``, else the first batch calibrates them.
 
-Multi-device serving is not ported yet (ROADMAP Queue 1).
+The decode-layer switches of the JAX engine, read once at construction in
+fast and turbo mode (parity mode ignores them, as ``engine.py:80``, ``:154``):
+
+* ``MMDX_KV_INT8=1`` — int8 KV cache with per-(row, head) scales, for beam
+  and greedy, read by the int8 attention kernel (default off);
+* ``MMDX_FUSED_LM_HEAD=1`` — the decode step returns ``LazyLogits`` and the
+  selection streams the tied lm head (``ops/lm_head.py``; default off);
+* ``MMDX_DEFER_KV=0`` — beam reads the written cache through the normalised
+  read kernel instead of the deferred partials (default on; greedy and the
+  int8 cache never defer, ``engine.py:422-427``).
+
+``MMDX_GREEDY_FLAT`` and ``MMDX_DECODE_SEGMENTS`` are TPU layout knobs and
+are not ported: greedy always runs over the flat cache at nb = 1, and the
+cache is one full-length buffer. Multi-device serving is not ported yet
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -37,6 +53,7 @@ from mmdx_tpu_torch.checkpoints.bridge import TorchBundle
 from mmdx_tpu_torch.config import GenerationConfig
 from mmdx_tpu_torch.decode.beam_search import (beam_expand, beam_search,
                                                make_generation_kwargs)
+from mmdx_tpu_torch.decode.greedy import greedy_decode
 from mmdx_tpu_torch.models import resnet_int8 as ri
 from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
                                            preprocess_batch_device_gray,
@@ -82,6 +99,10 @@ class InferenceEngine:
         self.kernels = mode in ("fast", "turbo")
         text_int8 = os.environ.get("MMDX_TEXT_INT8", "")
         self.text_int8 = text_int8 == "1" or (mode == "turbo" and text_int8 != "0")
+        env = os.environ.get
+        self.kv_int8 = self.kernels and env("MMDX_KV_INT8", "") == "1"
+        self.fused_lm_head = self.kernels and env("MMDX_FUSED_LM_HEAD", "") == "1"
+        self.defer_kv = env("MMDX_DEFER_KV", "1") != "0"
         self._qparams = None
         self.calibration_ms = None  # host time of the first-batch calibration
         self.canonical_size = canonical_size
@@ -244,28 +265,37 @@ class InferenceEngine:
     @torch.inference_mode()
     def generate_report_ids(self, z_img, z_txt, gen: GenerationConfig | None = None,
                             greedy: bool = False) -> np.ndarray:
-        """Beam-search report token ids [B, 1+max_new_tokens] (HF ``generate``
-        layout: leading decoder_start, pad/eos fill past the finish)."""
-        if greedy:
-            raise NotImplementedError("greedy decode is not ported yet: ROADMAP "
-                                      "Queue 1, 'Greedy decode'")
+        """Report token ids [B, 1+max_new_tokens] (HF ``generate`` layout:
+        leading decoder_start, pad/eos fill past the finish), beam search or
+        greedy over the flat cache at nb = 1."""
         gen = gen or self.bundle.config.generation
         z_img = torch.as_tensor(z_img).to(self.device, self.dtype)
         z_txt = torch.as_tensor(z_txt).to(self.device, self.dtype)
-        b, nb = int(z_img.shape[0]), gen.num_beams
+        b, nb = int(z_img.shape[0]), 1 if greedy else gen.num_beams
         lmax = 1 + gen.max_new_tokens
         prep = self.model.prepare_generation(beam_expand(z_img, nb),
-                                             beam_expand(z_txt, nb), lmax, nb)
+                                             beam_expand(z_txt, nb), lmax, nb,
+                                             kv_int8=self.kv_int8)
         cache, static_kv = prep["cache"], prep["static_kv"]
         self_bias, enc_mask = prep["self_bias"], prep["enc_mask"]
+        vocab = self.bundle.config.report.vocab_size
+        kw = make_generation_kwargs(gen)
 
-        def step_fn(tokens, pos, anc):
-            return self.model.decode_step_beam(tokens, pos, cache, anc, static_kv,
-                                               self_bias, enc_mask, kernels=self.kernels)
+        def step(tokens, pos, anc):
+            return self.model.decode_step_beam(
+                tokens, pos, cache, anc, static_kv, self_bias, enc_mask,
+                kernels=self.kernels, defer=self.defer_kv,
+                lazy_logits=self.fused_lm_head)
 
-        seqs, _ = beam_search(step_fn, batch=b,
-                              vocab_size=self.bundle.config.report.vocab_size,
-                              device=self.device, **make_generation_kwargs(gen))
+        if greedy:
+            anc0 = torch.zeros((b, 1, lmax), dtype=torch.int64, device=self.device)
+            kw = {k: v for k, v in kw.items() if k not in ("num_beams", "length_penalty",
+                                                           "early_stopping")}
+            seqs = greedy_decode(lambda tokens, pos: step(tokens, pos, anc0), batch=b,
+                                 vocab_size=vocab, device=self.device, **kw)
+        else:
+            seqs, _ = beam_search(step, batch=b, vocab_size=vocab, device=self.device,
+                                  **kw)
         return seqs.cpu().numpy()
 
     def generate_reports(self, z_img, z_txt, gen: GenerationConfig | None = None,

@@ -16,7 +16,11 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      against turbo (int8 tower through K5, W8A8 text blocks; the turbo
      engine calibrates on its first batch, a warm-up), in turns fast, turbo,
      turbo, fast, three repeats each;
-  3. one warm call each of generate B=4, generate B=32, classify B=4 and
+  3. fast greedy ``generate_report_ids(greedy=True)`` at B=4 and B=64 (two
+     repeats after a warm-up; the B=64 conditioning is the B=32 batch's
+     twice), on the host clock;
+  4. one warm call each of generate B=4, generate B=32, greedy B=4 and
+     B=64, classify B=4 and
      gray classify B=32 in fast and turbo mode under ``torch.profiler``: the
      wall time, the device time (the profiler's self CUDA total: the sum of
      the kernels' durations), the busy share = device / wall (the profiler's
@@ -163,10 +167,20 @@ def main() -> int:
         gray_batches[b] = calls
     log(f"turbo first-batch calibration + quantization: {turbo.calibration_ms:.1f} ms")
 
+    greedy_z = {4: batches[4][1:], 64: tuple(torch.cat([z, z]) for z in batches[32][1:])}
+    for b, z in greedy_z.items():
+        engine.generate_report_ids(*z, greedy=True)  # warm-up
+        gen = sorted(synced_ms(lambda: engine.generate_report_ids(*z, greedy=True))[1]
+                     for _ in range(2))
+        log(f"B={b}: greedy generate ms {gen} (180 max steps)")
+
     for b in (4, 32):
         _, z_img, z_txt = batches[b]
         profiled(f"generate B={b}", lambda: engine.generate_report_ids(z_img, z_txt),
                  out_dir)
+    for b, z in greedy_z.items():
+        profiled(f"greedy generate B={b}",
+                 lambda: engine.generate_report_ids(*z, greedy=True), out_dir)
     profiled("classify B=4", batches[4][0], out_dir)
     for mode in ("fast", "turbo"):
         ops = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)

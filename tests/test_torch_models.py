@@ -92,7 +92,7 @@ def test_decode_step_beam_matches_jax(small, kernels):
             tprep["static_kv"], tprep["self_bias"], tprep["enc_mask"], kernels=kernels)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     for jc, tc in zip(jcache, tprep["cache"]):
-        np.testing.assert_allclose(tc.numpy(), np.asarray(jc["kv"]), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tc["kv"].numpy(), np.asarray(jc["kv"]), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("bidirectional", [False, True])

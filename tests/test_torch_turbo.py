@@ -116,8 +116,53 @@ def _mk(rng, shape, scale=0.5):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
+# W8A8 bars (K6, K7). Both blocks quantize an f32 intermediate per row a second
+# time (the tanh-GELU output, the attention context) before the output
+# product. Its f32 value differs by an ulp or two between the two sides: XLA's
+# CPU tanh, exp and fused multiply-adds are its own code, chosen for the
+# host's vector width, and torch's are others. round(v / s) flips by one where
+# v / s lies that close to a .5 tie, about once in 1e5 elements. One flip moves
+# the output row by one quantization step, far above 1e-4 (on these shapes 2
+# of 60 seeds flip a row on one host). So: the int8 values agree except for
+# rare +-1 flips; the outputs agree to 1e-4 except at a flip-prone row (an
+# element within TIE_MARGIN of a tie), at most MAX_FLIP_ROWS of them, each
+# within one quantization step.
+TIE_MARGIN = 2e-4      # |v/s| <= 127 and a few ulps each of v and s: ~6e-5
+MAX_FLIP_FRACTION = 1e-3
+MAX_FLIP_ROWS = 2
+
+
+def _assert_int8_flips(got, ref):
+    """int8 intermediates equal except +-1 flips in a small fraction."""
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(ref, np.int32))
+    assert d.max() <= 1, d.max()
+    assert np.count_nonzero(d) <= MAX_FLIP_FRACTION * d.size, np.count_nonzero(d)
+
+
+def _assert_w8a8_rows_close(got, ref, v, y, w_out, ln_scale):
+    """Outputs to 1e-4, except rows that one flip of the port's second row
+    quantization (of ``v [M, K]`` f32, before the product with ``w_out
+    [K, H]``) can move: those within one quantization step. A step moves the
+    pre-LayerNorm row ``y`` by at most s * max|w_out|; the LayerNorm scales
+    that by max|ln_scale| / std(y), and the mean and variance terms at most
+    double it."""
+    got, ref, v, y = (np.asarray(a, np.float64) for a in (got, ref, v, y))
+    s = np.maximum(np.abs(v).max(-1), 1e-12) / 127.0
+    r = np.abs(v / s[:, None])
+    near_tie = (np.abs(r - np.floor(r) - 0.5) < TIE_MARGIN).any(-1)
+    step = 2 * s * np.abs(w_out).max() * np.abs(ln_scale).max() / y.std(-1)
+    diff = np.abs(got - ref)
+    off = np.nonzero((diff > 1e-4 + 1e-4 * np.abs(ref)).any(-1))[0]
+    assert len(off) <= MAX_FLIP_ROWS, off
+    for row in off:
+        assert near_tie[row], (row, diff[row].max())
+        assert diff[row].max() <= step[row], (row, diff[row].max(), step[row])
+
+
 def test_ffn_int8_plain_matches_pallas():
-    from mmdx_tpu.ops.pallas_ffn import fused_ffn_ln_int8
+    """K6 plain vs the Pallas body in interpret mode; bars as stated above
+    (the GELU output's requantization is the flip site)."""
+    from mmdx_tpu.ops import pallas_ffn as pf
 
     rng = np.random.default_rng(1)
     m, h, f = 64, 128, 256
@@ -126,19 +171,40 @@ def test_ffn_int8_plain_matches_pallas():
     wo, bo = _mk(rng, (f, h), 0.1), _mk(rng, (h,), 0.05)
     lns, lnb = 1.0 + _mk(rng, (h,), 0.1), _mk(rng, (h,), 0.1)
     with pltpu.force_tpu_interpret_mode():
-        ref = fused_ffn_ln_int8(x, wi, bi, wo, bo, lns, lnb, block_rows=32)
-    got = fused_ffn.fused_ffn_ln_int8(
-        _t(x), *fused_ffn.quant_weight_cols(_t(wi)), _t(bi),
-        *fused_ffn.quant_weight_cols(_t(wo)), _t(bo), _t(lns), _t(lnb))
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+        ref = pf.fused_ffn_ln_int8(x, wi, bi, wo, bo, lns, lnb, block_rows=32)
+    wi_q, wo_q = fused_ffn.quant_weight_cols(_t(wi)), fused_ffn.quant_weight_cols(_t(wo))
+    got = fused_ffn.fused_ffn_ln_int8(_t(x), *wi_q, _t(bi), *wo_q, _t(bo), _t(lns),
+                                      _t(lnb))
+    # the port's intermediates, and the Pallas module's GELU + quantizer on
+    # its own (jitted) mid
+    xi, sx = fused_ffn.quant_rows(_t(x))
+    g = fused_ffn.gelu_tanh(int8_gemm.exact_matmul_s8(xi, wi_q[0]) * (sx[:, None] * wi_q[1])
+                            + _t(bi))
+    gi, sg = fused_ffn.quant_rows(g)
+    y = int8_gemm.exact_matmul_s8(gi, wo_q[0]) * (sg[:, None] * wo_q[1]) + _t(bo) + _t(x)
+
+    @jax.jit
+    def jax_gi(x, wi, bi):
+        xq, xs = pf._quant_rows(x)
+        wq, ws = pf.quant_weight_cols(wi)
+        mid = jnp.dot(xq.astype(jnp.int32), wq.astype(jnp.int32)).astype(jnp.float32)
+        return pf._quant_rows(pf._gelu_tanh(mid * (xs * ws) + bi))[0]
+
+    _assert_int8_flips(gi.numpy(), jax_gi(x, wi, bi))
+    _assert_w8a8_rows_close(got.numpy(), ref, g.numpy(), y.numpy(),
+                            (wo_q[0].to(torch.float32) * wo_q[1]).numpy(), lns)
 
 
 def test_attn_int8_plain_matches_pallas():
+    """K7 plain vs the Pallas body in interpret mode; bars as stated above
+    (the attention context's requantization is the flip site: the two sides
+    compute the scores' scale and the softmax exp apart)."""
+    from mmdx_tpu.ops import pallas_ffn as pf
     from mmdx_tpu.ops.pallas_bert_attn import fused_attention_block
 
     rng = np.random.default_rng(2)
     b, l, h, heads = 16, 8, 128, 4
-    m = b * l
+    m, d = b * l, h // heads
     x = _mk(rng, (m, h))
     kmask = np.where(rng.random((m,)) < 0.15, -1e9, 0.0).astype(np.float32)
     wqkv, bqkv = _mk(rng, (h, 3 * h), 0.1), _mk(rng, (3 * h,), 0.05)
@@ -147,11 +213,33 @@ def test_attn_int8_plain_matches_pallas():
     with pltpu.force_tpu_interpret_mode():
         ref = fused_attention_block(x, kmask, wqkv, bqkv, wo, bo, lns, lnb, seq_len=l,
                                     num_heads=heads, int8_matmuls=True)
+    wqkv_q, wo_q = fused_ffn.quant_weight_cols(_t(wqkv)), fused_ffn.quant_weight_cols(_t(wo))
     got = bert_attn.fused_attention_block_int8(
-        _t(x), _t(kmask), *fused_ffn.quant_weight_cols(_t(wqkv)), _t(bqkv),
-        *fused_ffn.quant_weight_cols(_t(wo)), _t(bo), _t(lns), _t(lnb),
+        _t(x), _t(kmask), *wqkv_q, _t(bqkv), *wo_q, _t(bo), _t(lns), _t(lnb),
         seq_len=l, num_heads=heads)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    xi, sx = fused_ffn.quant_rows(_t(x))
+    qkv = (int8_gemm.exact_matmul_s8(xi, wqkv_q[0]) * (sx[:, None] * wqkv_q[1])
+           + _t(bqkv))
+    ctx = bert_attn.attention_ctx_f32(qkv, _t(kmask), l, heads)
+    ci, sc = fused_ffn.quant_rows(ctx)
+    y = _t(x) + int8_gemm.exact_matmul_s8(ci, wo_q[0]) * (sc[:, None] * wo_q[1]) + _t(bo)
+
+    @jax.jit
+    def jax_ci(x, kmask, wqkv, bqkv):  # _kernel_int8's chain, per sequence
+        xq, xs = pf._quant_rows(x)
+        wq, ws = pf.quant_weight_cols(wqkv)
+        qkv = jnp.dot(xq.astype(jnp.int32), wq.astype(jnp.int32)).astype(jnp.float32)
+        qkv = (qkv * (xs * ws) + bqkv).reshape(b, l, 3, heads, d)
+        s = jnp.einsum("bqhd,bkhd->bhqk", qkv[:, :, 0], qkv[:, :, 1]) * (1.0 / d ** 0.5)
+        s = s + kmask.reshape(b, 1, 1, l)
+        e = jnp.exp(s - s.max(-1, keepdims=True))
+        p = e / e.sum(-1, keepdims=True)
+        ctx = jnp.einsum("bhqk,bkhd->bqhd", p, qkv[:, :, 2]).reshape(m, h)
+        return pf._quant_rows(ctx)[0]
+
+    _assert_int8_flips(ci.numpy(), jax_ci(x, kmask, wqkv, bqkv))
+    _assert_w8a8_rows_close(got.numpy(), ref, ctx.numpy(), y.numpy(),
+                            (wo_q[0].to(torch.float32) * wo_q[1]).numpy(), lns)
 
 
 def test_text_tower_int8_matches_jax(tower):
