@@ -10,11 +10,11 @@ Phases (any failure exits nonzero):
      parallel);
   2. each kernel against its plain PyTorch version on the same inputs at
      serving shapes: max abs/rel error against the stated tolerance (the int8
-     GEMM K5 bit for bit; the lm head's argmax exactly, outside reported
-     near-ties), the median time of each over 30 runs (CUDA events), the
-     least time the card could take for the same work, and for the bf16
-     cache read the time of the library call of the same function
-     (scaled_dot_product_attention);
+     GEMM K5 and the int8 fused bottleneck bit for bit; the lm head's argmax
+     exactly, outside reported near-ties), the median time of each over 30
+     runs (CUDA events), the least time the card could take for the same
+     work, and for the bf16 cache read and flash attention the time of the
+     library call of the same function (scaled_dot_product_attention);
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
@@ -27,6 +27,13 @@ Phases (any failure exits nonzero):
        decode variants: fast greedy at B=4 and B=64, beam-4 with
        MMDX_DEFER_KV=0, an MMDX_KV_INT8=1 MMDX_FUSED_LM_HEAD=1 engine under
        beam-4 and greedy, the fused-lm-head greedy against the dense one;
+       long text (max_len 512): fast classify in the 344 and 512 buckets
+       (flash attention in every layer) and in the 176 bucket (the einsum
+       route), against the parity engine;
+       fused blocks: a turbo engine with MMDX_INT8_FUSED_BLOCKS=1,2 against
+       the unfused turbo engine; the fused preprocessing beside the matmul
+       one; the bf16 image tower with use_fused_bottleneck against the cuDNN
+       tower;
   4. /api/predict/ through the port's WSGI app, in process: fast mode,
      turbo mode with a gray PNG upload, and fast mode with greedy reports.
 
@@ -44,18 +51,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# K1, K2, K4, K6, K7 end in bf16 outputs of magnitude up to a few units: a
-# few bf16 ulps (the Pallas bf16 tests use 3e-2 and 4e-2,
+# K1, K2, K4, K6, K7 and row 12 end in bf16 outputs of magnitude up to a
+# few units: a few bf16 ulps (the Pallas bf16 tests use 3e-2 and 4e-2,
 # tests/test_pallas_beam_attn.py:45, tests/test_pallas_t5_step.py:47)
 ATOL = RTOL = 4e-2
+# row 9: bf16 outputs of |out| <= ~0.3 (0.5 randn values averaged over 128
+# to 512 keys); one bf16 ulp there is <= 2e-3, so the limit is about two
+# ulps and far below the 5e-3 and more that a dropped or doubled key tile or
+# a wrong padding bias moves an output
+FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 # K3's acc, m and l are f32 sums over the same bf16 products as its plain
 # version, so they agree to f32 summation order, far inside this bound
 K3_ATOL, K3_RTOL = 1e-4, 1e-3
 # rows 10 and 11: f32 logits of bf16 products summed over D = 512 on the
 # tensor cores and in the plain f32 product: summation order only
 DEC_TOL = 1e-4
-# published dense peaks of one H100 SXM (NVIDIA data sheet, at 700 W)
-PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
+# row 17: f32 sums of the same terms in another order (the kernel's banded
+# FMAs, the plain version's dense f32 matmuls) on outputs of magnitude < 3
+PRE_ATOL, PRE_RTOL = 1e-4, 1e-5
+# published dense peaks of one H100 SXM (NVIDIA data sheet, at 700 W); f32
+# outside the tensor cores
+PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
 
 KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "bert_attn": ("mmdx_tpu_torch/csrc/bert_attn.cu",
@@ -80,6 +96,14 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                        "mmdx_tpu/ops/pallas_lm_head.py:156"),
     "lm_head_stats": ("mmdx_tpu_torch/csrc/lm_head.cu",
                       "mmdx_tpu/ops/pallas_lm_head.py:210"),
+    "flash_attention": ("mmdx_tpu_torch/csrc/flash_attn.cu",
+                        "mmdx_tpu/ops/pallas_attention.py:94"),
+    "int8_bottleneck": ("mmdx_tpu_torch/csrc/int8_bottleneck.cu",
+                        "mmdx_tpu/ops/pallas_int8_bottleneck.py:155"),
+    "bottleneck": ("mmdx_tpu_torch/csrc/bottleneck.cu",
+                   "mmdx_tpu/ops/pallas_bottleneck.py:128"),
+    "preprocess": ("mmdx_tpu_torch/csrc/preprocess.cu",
+                   "mmdx_tpu/ops/pallas_preprocess.py:62"),
 }
 
 
@@ -110,12 +134,13 @@ def median_ms(fn, runs: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, bf16_ops: float = 0.0):
+def bound(nbytes: float, int8_ops: float = 0.0, bf16_ops: float = 0.0,
+          f32_ops: float = 0.0):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over the memory rate and the operations over the
     peak rate of their type."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16
+    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16 + f32_ops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -325,6 +350,7 @@ def phase_kernels(device) -> dict:
         log(f"  K4 N={n} bound {rec[3]:.4f} ms ({rec[4]})")
         out.setdefault("t5_cross_ffn", rec)
     out.update(phase_decode_kernels(device, g))
+    out.update(phase_route_kernels(device, g))
     torch.cuda.synchronize()
     return out
 
@@ -432,6 +458,131 @@ def phase_decode_kernels(device, g) -> dict:
     return out
 
 
+def phase_route_kernels(device, g) -> dict:
+    """Row 9 (flash attention) at BERT-base widths, B=32 and B=4, L=512 and
+    344, q/k/v read as head views of a merged projection, a key-mask bias,
+    against scaled_dot_product_attention as the library call; row 13 (int8
+    fused bottleneck) at stage 1 and stage 2 shapes, B=32, bit-equal; row 12
+    (bf16 fused bottleneck) at stage 1 block 0 (projection) and a stage-2
+    identity block, B=32; row 17 (fused preprocessing) at B=32, 512x512,
+    gray and RGB. -> the record of the first shape of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmdx_tpu_torch.models.resnet_int8 import full_f32
+    from mmdx_tpu_torch.ops import bottleneck as bn
+    from mmdx_tpu_torch.ops import flash_attention as fa
+    from mmdx_tpu_torch.ops import int8_bottleneck as ib
+    from mmdx_tpu_torch.ops import preprocess as pp
+
+    bf = torch.bfloat16
+    out = {}
+
+    def record(name, rec, label):
+        log(f"  {label} kernel {rec[1]:.4f} ms, plain {rec[2]:.4f} ms, library "
+            f"{'none' if rec[5] is None else f'{rec[5]:.4f} ms'} (median of 30); "
+            f"bound {rec[3]:.4f} ms ({rec[4]})")
+        out.setdefault(name, rec)
+
+    heads, d = 12, 64
+    hd = heads * d
+    for b, l in ((32, 512), (4, 512), (32, 344), (4, 344)):
+        qkv = (torch.randn(b * l, 3 * hd, generator=g) * 0.5).to(device, bf)
+
+        def split(i):  # [B, heads, L, d] views of the merged rows, as in BERT
+            return qkv[:, i * hd:(i + 1) * hd].reshape(b, l, heads, d).permute(0, 2, 1, 3)
+
+        q, k, v = split(0), split(1), split(2)
+        lens = torch.randint(l // 4, l + 1, (b,), generator=g)
+        bias = torch.where(torch.arange(l)[None, :] < lens[:, None], 0.0, -1e9)
+        bias = bias.reshape(b, 1, 1, l).to(device)
+        scale = 1.0 / d ** 0.5
+        log(f"row 9 flash_attention: B={b}, {heads} heads, L={l}, d={d} bf16, key mask")
+        with full_f32():
+            err = compare(f"row 9 B={b} L={l}", fa.flash_attention(q, k, v, bias, scale),
+                          fa.flash_attention_plain(q, k, v, bias, scale),
+                          FLASH_ATOL, FLASH_RTOL)
+            pms = median_ms(lambda: fa.flash_attention_plain(q, k, v, bias, scale))
+        ms = median_ms(lambda: fa.flash_attention(q, k, v, bias, scale))
+        mask_bf = bias.to(bf)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask_bf, scale=scale))
+        nbytes = 4 * b * heads * l * d * 2 + 4 * b * l
+        record("flash_attention", (err, ms, pms) + bound(
+            nbytes, bf16_ops=2 * 2 * b * heads * l * l * d) + (lib_ms,), f"row 9 B={b} L={l}")
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)
+
+    def uniform(n, lo, hi):
+        return (lo + (hi - lo) * torch.rand(n, generator=g)).to(device)
+
+    for stage, b, hw, c, m in ((1, 32, 56, 256, 64), (2, 32, 28, 512, 128)):
+        x = s8(b, hw, hw, c)
+        args = dict(w1=s8(c, m), k1=uniform(m, 1e-4, 1e-3), b1=uniform(m, -2, 2),
+                    w2flat=s8(9 * m, m), k2=uniform(m, 1e-5, 1e-4), b2=uniform(m, -2, 2),
+                    w3=s8(m, c), k3=uniform(c, 1e-4, 1e-3), b3=uniform(c, -2, 2), kx=0.7)
+        log(f"row 13 fused_bottleneck_int8: stage {stage}, x [{b}, {hw}, {hw}, {c}] s8, M={m}")
+        err = compare_exact(f"row 13 stage {stage}", ib.fused_bottleneck_int8(x, **args),
+                            ib.fused_bottleneck_int8_plain(x, **args))
+        ms = median_ms(lambda: ib.fused_bottleneck_int8(x, **args))
+        pms = median_ms(lambda: ib.fused_bottleneck_int8_plain(x, **args))
+        px = b * hw * hw
+        nbytes = 2 * px * c + 2 * c * m + 9 * m * m + 4 * (4 * m + 2 * c)
+        ops = 2 * px * (2 * c * m + 9 * m * m)
+        rec = (err, ms, pms) + bound(nbytes, int8_ops=ops) + (None,)
+        log(f"  achieved {ops / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.1f} GB/s")
+        record("int8_bottleneck", rec, f"row 13 stage {stage}")
+
+    for label, b, hw, cin, m, cout, proj in (
+            ("stage 1 block 0 (projection)", 32, 56, 64, 64, 256, True),
+            ("stage 2 identity block", 32, 28, 512, 128, 512, False)):
+        x = torch.randn(b, hw, hw, cin, generator=g).to(device, bf)
+
+        def w(*shape, fan):
+            return (torch.randn(*shape, generator=g) * fan ** -0.5).to(device, bf)
+
+        def vec(n):
+            return (torch.randn(n, generator=g) * 0.1).to(device)
+
+        args = dict(w1=w(cin, m, fan=cin), b1=vec(m), w2=w(3, 3, m, m, fan=9 * m), b2=vec(m),
+                    w3=w(m, cout, fan=m), b3=vec(cout))
+        if proj:
+            args.update(wp=w(cin, cout, fan=cin), bp=vec(cout))
+        log(f"row 12 fused_bottleneck: {label}, x [{b}, {hw}, {hw}, {cin}] bf16, M={m}, "
+            f"Cout={cout}")
+        with full_f32():
+            err = compare(f"row 12 {label}", bn.fused_bottleneck(x, **args),
+                          bn.fused_bottleneck_plain(x, **args))
+            pms = median_ms(lambda: bn.fused_bottleneck_plain(x, **args))
+        ms = median_ms(lambda: bn.fused_bottleneck(x, **args))
+        px = b * hw * hw
+        macs = cin * m + 9 * m * m + m * cout + (cin * cout if proj else 0)
+        nbytes = 2 * px * (cin + cout) + 2 * macs + 4 * (2 * m + 2 * cout)
+        record("bottleneck", (err, ms, pms) + bound(nbytes, bf16_ops=2 * px * macs) + (None,),
+               f"row 12 {label}")
+
+    for ch in (3, 1):
+        b, side, crop = 32, 512, 224
+        batch = torch.randint(0, 256, (b, side, side, ch), generator=g,
+                              dtype=torch.uint8).to(device)
+        name = "RGB" if ch == 3 else "gray"
+        log(f"row 17 preprocess_batch_fused: [{b}, {side}, {side}, {ch}] u8 -> "
+            f"[{b}, {crop}, {crop}, 3] f32 ({name})")
+        with full_f32():
+            err = compare(f"row 17 {name}", pp.preprocess_batch_fused(batch),
+                          pp.preprocess_batch_fused_plain(batch), PRE_ATOL, PRE_RTOL)
+            pms = median_ms(lambda: pp.preprocess_batch_fused_plain(batch))
+        ms = median_ms(lambda: pp.preprocess_batch_fused(batch))
+        kh, kw, (hlo, hhi), (wlo, whi), _, _ = pp._fused_consts(
+            side, side, 256, crop, pp.IMAGENET_MEAN, pp.IMAGENET_STD)
+        terms = int((hhi - hlo).sum()) * int(whi.max() - wlo.min()) + crop * int((whi - wlo).sum())
+        nbytes = batch.numel() + 4 * b * crop * crop * 3 + 4 * (kh.size + kw.size)
+        record("preprocess", (err, ms, pms) + bound(nbytes, f32_ops=2 * terms * 3 * b) + (None,),
+               f"row 17 {name}")
+    return out
+
+
 def phase_int8_gemm(device, g):
     """K5 at the int8 tower's shapes at B=32, each epilogue, and the gray stem
     at B=512 (the turbo headline batch: 100,352 row tiles), bit-equal to the
@@ -504,8 +655,9 @@ def phase_int8_gemm(device, g):
 
 def launch_counters() -> dict:
     """name -> (read the kernel's launch count, set it to 0)."""
-    from mmdx_tpu_torch.ops import (beam_attn, bert_attn, fused_ffn, int8_gemm,
-                                    lm_head, t5_step)
+    from mmdx_tpu_torch.ops import (beam_attn, bert_attn, bottleneck, flash_attention,
+                                    fused_ffn, int8_bottleneck, int8_gemm, lm_head,
+                                    preprocess, t5_step)
 
     wrappers = {
         "bert_attn": bert_attn.fused_attention_block,
@@ -518,6 +670,10 @@ def launch_counters() -> dict:
         "beam_attn_int8": beam_attn.beam_decode_attention_int8,
         "lm_head_greedy": lm_head.lm_head_greedy,
         "lm_head_stats": lm_head.lm_head_stats,
+        "flash_attention": flash_attention.flash_attention,
+        "int8_bottleneck": int8_bottleneck.fused_bottleneck_int8,
+        "bottleneck": bottleneck.fused_bottleneck,
+        "preprocess": preprocess.preprocess_batch_fused,
     }
     counters = {k: (lambda fn=fn: fn.launches, lambda fn=fn: setattr(fn, "launches", 0))
                 for k, fn in wrappers.items()}
@@ -698,12 +854,12 @@ def phase_turbo(device, bundle, images, counters, fast, fast_probs):
     fast_gray, _, _ = fast.classify_batch(gray, TEXTS)
     log(f"  max |prob turbo - fast|: RGB {float(np.abs(results['RGB'] - fast_probs).max()):.4f}, "
         f"gray {float(np.abs(results['gray'] - fast_gray).max()):.4f} (informative)")
-    return launches
+    return launches, turbo
 
 
-def engine_with(bundle, device, env: dict):
-    """A fast engine built with the decode-layer switches ``env`` set (the
-    engine reads them once, at construction)."""
+def engine_with(bundle, device, env: dict, mode: str = "fast"):
+    """An engine built with the switches ``env`` set (the engine reads them
+    once, at construction)."""
     import os
 
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
@@ -711,7 +867,7 @@ def engine_with(bundle, device, env: dict):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        return InferenceEngine(bundle, mode="fast", device=device)
+        return InferenceEngine(bundle, mode=mode, device=device)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -769,6 +925,155 @@ def phase_decode_variants(device, bundle, fast, z4, counters):
     diverge = first_differences(ids_of["greedy fused lm head B=4"], ids_of["fast greedy B=4"])
     log(f"  fused-lm-head greedy vs dense greedy, B=4: first differing token position "
         f"per report (None = identical): {diverge} (informative)")
+    return total
+
+
+def long_text(n_words: int) -> str:
+    """A patient history of ``n_words`` one-wordpiece words."""
+    words = ["cough", "fever", "dyspnea", "effusion", "opacity", "chest", "pain", "left"]
+    return " ".join(words[i % len(words)] for i in range(n_words))
+
+
+def phase_long_text(device, bundle, images, counters) -> dict:
+    """Long text at BERT-base's own limit (max_len 512, the buckets 176, 256,
+    344): fast classify_batch B=4 in the 344 and 512 buckets runs flash
+    attention in all 12 layers and no fused attention block (K1), and in the
+    176 bucket neither (the einsum route); the 512-bucket probabilities
+    against the parity engine's (the fast-vs-parity bar 0.1). -> launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine, bucket_ladder
+
+    config = bundle.config
+    long_cfg = dataclasses.replace(config, text=dataclasses.replace(config.text, max_len=512))
+    lb = dataclasses.replace(bundle, config=long_cfg)
+    layers = config.text.num_layers
+    if bucket_ladder(512) != (176, 256, 344):
+        fail(f"bucket_ladder(512) = {bucket_ladder(512)}, expected (176, 256, 344)")
+    fast = InferenceEngine(lb, mode="fast", device=device)
+    total = {}
+    for n_words, bucket in ((300, 344), (450, 512), (100, 176)):
+        texts = [long_text(n_words)] + TEXTS[1:]
+        if fast.prep_texts(texts)["input_ids"].shape[1] != bucket:
+            fail(f"long text of {n_words} words did not land in the {bucket} bucket")
+        reset_counts(counters)
+        (probs, _, _), ms = synced(lambda: fast.classify_batch(images, texts))
+        launches = read_counts(counters)
+        check_probs(f"long text L={bucket}", probs)
+        flash = layers if bucket >= 256 else 0
+        if launches["flash_attention"] != flash or launches["bert_attn"] or \
+                launches["fused_ffn"] != layers:
+            fail(f"long text L={bucket}: expected {flash} flash attention, 0 K1 and "
+                 f"{layers} K2 launches per classify, got {launches}")
+        log(f"  fast classify_batch B=4, L={bucket}: {ms:.1f} ms; launches: flash "
+            f"{launches['flash_attention']}, K1 {launches['bert_attn']}, K2 "
+            f"{launches['fused_ffn']}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        if bucket == 512:
+            del fast
+            parity = InferenceEngine(lb, mode="parity", device=device)
+            ref, _, _ = parity.classify_batch(images, texts)
+            del parity
+            gap = float(np.abs(probs - ref).max())
+            log(f"  L=512 max |prob fast - parity| = {gap:.4f} (bar 0.1)")
+            if gap > 0.1:
+                fail(f"long text: fast (flash) and parity differ by {gap:.4f} > 0.1")
+            fast = InferenceEngine(lb, mode="fast", device=device)
+    return total
+
+
+def phase_fused_blocks(device, bundle, images, counters, turbo) -> dict:
+    """The fused-block routes at full width: a turbo engine with
+    MMDX_INT8_FUSED_BLOCKS=1,2 on the unfused turbo engine's int8 tower (5
+    row-13 launches and 38 K5 per classify, probabilities within the turbo
+    guard 0.05 of the unfused engine's); the fused preprocessing (row 17) of
+    the RGB and gray batches beside the matmul preprocessing; the bf16 image
+    tower with use_fused_bottleneck (6 row-12 launches) against the cuDNN
+    tower of the fast engine. -> launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mmdx_tpu_torch.models.layers import cast_
+    from mmdx_tpu_torch.models.resnet import ImageEncoder
+    from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
+                                               preprocess_batch_fused)
+
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    gray = [np.ascontiguousarray(im[:, :, 0]) for im in images]
+    fused = engine_with(bundle, device, {"MMDX_INT8_FUSED_BLOCKS": "1,2"}, mode="turbo")
+    if fused.int8_fused_blocks != (1, 2):
+        fail(f"MMDX_INT8_FUSED_BLOCKS=1,2 did not reach the engine: {fused.int8_fused_blocks}")
+    fused._qparams = turbo._qparams  # the same calibrated int8 tower
+    for name, imgs in (("gray", gray), ("RGB", images)):
+        ref, _, _ = turbo.classify_batch(imgs, TEXTS)
+        reset_counts(counters)
+        (probs, _, _), ms = synced(lambda: fused.classify_batch(imgs, TEXTS))
+        launches = read_counts(counters)
+        check_probs(f"turbo fused blocks {name}", probs)
+        gap = float(np.abs(probs - ref).max())
+        log(f"  turbo MMDX_INT8_FUSED_BLOCKS=1,2 classify_batch B=4 {name}: {ms:.1f} ms; "
+            f"launches: row 13 {launches['int8_bottleneck']}, K5 {launches['int8_gemm']}; "
+            f"max |prob fused - unfused| = {gap:.4f} (bar 0.05)")
+        if launches["int8_bottleneck"] != 5 or launches["int8_gemm"] != 38:
+            fail(f"turbo fused blocks: expected 5 row-13 and 38 K5 launches per classify, "
+                 f"got {launches}")
+        if gap > 0.05:
+            fail(f"turbo fused blocks: probabilities differ from the unfused tower by {gap:.4f}")
+        add(launches)
+    del fused
+
+    cfg = bundle.config.image
+    encoders = []
+    for c in (dataclasses.replace(cfg, use_fused_bottleneck=True), cfg):
+        e = ImageEncoder(c)
+        e.load_state_dict(bundle.model.image_encoder.state_dict())
+        encoders.append(cast_(e, torch.bfloat16).to(device).eval())
+    enc, ref_enc = encoders  # the fused tower, the cuDNN tower
+    for name, imgs in (("RGB", images), ("gray", gray)):
+        batch = torch.from_numpy(np.stack(imgs)).to(device)
+        if batch.dim() == 3:
+            batch = batch[..., None]
+        reset_counts(counters)
+        x, ms = synced(lambda: preprocess_batch_fused(batch, cfg.img_size, cfg.resize_size,
+                                                      cfg.mean, cfg.std))
+        launches = read_counts(counters)
+        with torch.inference_mode():
+            ref = preprocess_batch_device(batch, cfg.img_size, cfg.resize_size, cfg.mean,
+                                          cfg.std)
+        compare(f"fused vs matmul preprocessing ({name}, B=4)", x, ref, PRE_ATOL, PRE_RTOL)
+        if launches["preprocess"] != 1:
+            fail(f"fused preprocessing: expected 1 row-17 launch, got {launches}")
+        log(f"  fused preprocessing B=4 {name}: {ms:.2f} ms")
+        add(launches)
+        if name != "RGB":
+            continue
+        xb = x.to(torch.bfloat16)
+        reset_counts(counters)
+        with torch.inference_mode():
+            z, ms = synced(lambda: enc.encode(xb))
+            launches = read_counts(counters)
+            z_ref = ref_enc.encode(xb)
+        z, z_ref = z.float(), z_ref.float()
+        rel = float((z - z_ref).norm() / z_ref.norm())
+        if z.shape != (4, cfg.d_img) or not torch.isfinite(z).all():
+            fail(f"fused bf16 tower: expected finite [4, {cfg.d_img}], got {tuple(z.shape)}")
+        log(f"  fused bf16 image tower B=4 at {cfg.img_size}: {ms:.1f} ms; row 12 launches "
+            f"{launches['bottleneck']}; rel-L2 vs the cuDNN tower {rel:.4f} (bar 0.05)")
+        if launches["bottleneck"] != 6:
+            fail(f"fused bf16 tower: expected 6 row-12 launches, got {launches}")
+        if rel > 0.05:
+            fail(f"fused bf16 tower: embeddings differ from the cuDNN tower by {rel:.4f}")
+        add(launches)
     return total
 
 
@@ -853,10 +1158,19 @@ def main() -> int:
     log("fast path")
     fast_launches, fast, fast_probs, z4 = phase_fast(device, bundle, images, counters)
     log("turbo path")
-    turbo_launches = phase_turbo(device, bundle, images, counters, fast, fast_probs)
+    turbo_launches, turbo = phase_turbo(device, bundle, images, counters, fast, fast_probs)
     log("decode variants: greedy and the decode-layer switches")
     variant_launches = phase_decode_variants(device, bundle, fast, z4, counters)
     del fast
+    log("long text: max_len 512, flash attention")
+    long_launches = phase_long_text(device, bundle, images, counters)
+    log("fused blocks: int8 and bf16 fused bottlenecks, fused preprocessing")
+    fused_launches = phase_fused_blocks(device, bundle, images, counters, turbo)
+    del turbo
+    runs = (fast_launches, turbo_launches, variant_launches, long_launches, fused_launches)
+    idle = [name for name in KERNELS if not sum(run.get(name, 0) for run in runs)]
+    if idle:
+        fail(f"kernels never launched on the main paths: {idle}")
     log("server: /api/predict/ through mmdx_tpu_torch.serve.wsgi")
     phase_server(bundle, device, "fast", 3, gray=False)
     phase_server(bundle, device, "turbo", 2, gray=True)
@@ -864,7 +1178,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": fast_launches[name] + turbo_launches[name] + variant_launches[name],
+         "launches": sum(run.get(name, 0) for run in runs),
          "max_abs_err": rec[0], "ms": rec[1], "plain_ms": rec[2], "bound_ms": rec[3],
          "bound_by": rec[4], "library_ms": rec[5] if len(rec) > 5 else None}
         for name, rec in ((name, kernel_stats[name]) for name in KERNELS)

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     # A, B, bias, resid, C, M, N, K, epilogue, stream
     "mmdx_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -55,6 +55,17 @@ SIGNATURES = {
     # x, q, scale, M, H, stream
     "mmdx_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
     "mmdx_quant_rows_f32": [_P, _P, _P, _I, _I, _P],
+    # q, k, v, bias, out, strides (q, k, v: b h l; bias: b h q k; out: b h l),
+    # B, H, Lq, Lk, Lk_pad, scale, is_bf16, stream
+    "mmdx_flash_attn": [_P] * 5 + [_L] * 16 + [_I] * 5 + [_F, _I, _P],
+    # x, w1, k1, b1, w2, k2, b2, w3, k3, b3, kx, out, B, H, W, C, M, TR, stream
+    "mmdx_int8_bottleneck": [_P] * 10 + [_F, _P] + [_I] * 6 + [_P],
+    # x, w1, b1, w2, b2, w3, b3, wp, bp, out, B, H, W, Cin, M, Cout, TR,
+    # is_bf16, stream
+    "mmdx_bottleneck": [_P] * 10 + [_I] * 8 + [_P],
+    # img, kh, kw, hlo, hhi, wlo, whi, scale, shift, out, B, H, W, C, crop,
+    # TRo, w0, w1, stream
+    "mmdx_preprocess": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 # GEMM epilogues (csrc/gemm.cu enum Epilogue)

@@ -124,17 +124,11 @@ beam_attn_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv
   }
 }
 
-// Eight cache values of one key or value row as f32: 16 bytes of bf16 or
-// 8 bytes of int8 (exact in bf16, so the int8 product is that of the Pallas
-// body's int8 -> bf16 cast).
-__device__ __forceinline__ void load8(const bf16* p, float out[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int u = 0; u < 8; ++u) out[u] = bf2f(v[u]);
-}
-
-__device__ __forceinline__ void load8(const int8_t* p, float out[8]) {
+// Eight cache values of one key or value row as f32: 16 bytes of bf16
+// (common.cuh) or 8 bytes of int8 (exact in bf16, so the int8 product is
+// that of the Pallas body's int8 -> bf16 cast).
+using ::load8;
+__device__ __forceinline__ void load8(const int8_t* p, float (&out)[8]) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll

@@ -19,6 +19,33 @@ __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
 // round an f32 value through bf16 (the Pallas kernels' .astype(bf16) points)
 __device__ __forceinline__ float round_bf16(float v) { return bf2f(f2bf(v)); }
 
+// Eight or four consecutive bf16 or f32 values (16-byte or 8-byte aligned
+// for bf16, 16-byte for f32) as f32, and one f32 value stored as T.
+__device__ __forceinline__ void load8(const bf16* p, float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = bf2f(b[i]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = bf2f(b[i]);
+}
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = f2bf(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -15,6 +15,7 @@ from torch import nn
 from mmdx_tpu_torch.config import DiagnosisConfig
 from mmdx_tpu_torch.models.bert import TextEncoder
 from mmdx_tpu_torch.models.fusion import FusionModel
+from mmdx_tpu_torch.models.layers import cast_
 from mmdx_tpu_torch.models.resnet import ImageEncoder
 
 
@@ -23,6 +24,7 @@ class DiagnosisModel(nn.Module):
                  bert_pooler: bool = True):
         super().__init__()
         self.config = config
+        self.t5_encoder_layers, self.bert_pooler = t5_encoder_layers, bert_pooler
         self.image_encoder = ImageEncoder(config.image)
         self.text_encoder = TextEncoder(config.text, pooler=bert_pooler)
         self.fusion = FusionModel(config.fusion, config.report, t5_encoder_layers)
@@ -62,13 +64,14 @@ class DiagnosisModel(nn.Module):
             token_ids, pos, cache, anc, static_kv, self_bias, enc_mask, kernels, defer,
             lazy_logits)
 
+    def with_config(self, config: DiagnosisConfig) -> "DiagnosisModel":
+        """A new model (f32, CPU) with these weights, built under ``config``:
+        the same widths with other route switches, which each module reads
+        when it is built."""
+        model = DiagnosisModel(config, self.t5_encoder_layers, self.bert_pooler)
+        model.load_state_dict(self.state_dict())
+        return model.eval()
+
     def cast_(self, dtype: torch.dtype) -> "DiagnosisModel":
-        """Cast the weights to the compute dtype in place, except the modules
-        marked ``keep_f32`` (T5 RMSNorm scales and relative-bias tables, f32
-        in the JAX package whatever the compute dtype)."""
-        for mod in self.modules():
-            if getattr(mod, "keep_f32", False):
-                continue
-            for name, p in mod.named_parameters(recurse=False):
-                p.data = p.data.to(dtype)
-        return self
+        """``layers.cast_``: the weights to the compute dtype, in place."""
+        return cast_(self, dtype)

@@ -17,6 +17,21 @@ def param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
+def cast_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module``'s weights to the compute dtype in place, except the
+    modules marked ``keep_f32`` (T5 RMSNorm scales and relative-bias tables,
+    f32 in the JAX package whatever the compute dtype) and the biases marked
+    ``keep_f32_bias`` (the fused bottlenecks' folded biases)."""
+    for mod in module.modules():
+        if getattr(mod, "keep_f32", False):
+            continue
+        for name, p in mod.named_parameters(recurse=False):
+            if name == "bias" and getattr(mod, "keep_f32_bias", False):
+                continue
+            p.data = p.data.to(dtype)
+    return module
+
+
 class Dense(nn.Module):
     """y = x @ kernel + bias (flax nn.Dense)."""
 

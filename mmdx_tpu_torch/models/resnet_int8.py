@@ -24,6 +24,12 @@ bit-exact by construction, so the port computes the direct conv. The
 f32 calibration pass, the input quantize, the im2col, the max-pool and the
 mean are glue that XLA ran outside Pallas; they stay plain PyTorch.
 
+``int8_backbone_apply(q, x, fuse_stages=(1, 2))`` (``MMDX_INT8_FUSED_BLOCKS``
+in the engine, ``resnet_int8.py:415-440``) runs each stride-1 identity block
+(``block > 0``) of the listed stages as one fused bottleneck
+(``ops/int8_bottleneck.py``, Queue 2 row 13) from its folded requant chain:
+with ``1,2`` that is stage 1 blocks 1-2 and stage 2 blocks 1-3.
+
 Layouts follow the JAX package: NHWC activations, HWIO int8 weights.
 """
 from __future__ import annotations
@@ -35,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from mmdx_tpu_torch.models.resnet import RESNET50_STAGES
+from mmdx_tpu_torch.ops.int8_bottleneck import (fold_block_epilogues,
+                                                fused_bottleneck_int8)
 from mmdx_tpu_torch.ops.int8_gemm import (K_ALIGN, div_exact, int8_gemm_requant,
                                           int8_gemm_res_requant)
 
@@ -260,12 +268,13 @@ def _conv_s8(xi, qc, sx, s_out, stride: int, relu: bool = True, res=None, rs=Non
 
 
 @torch.inference_mode()
-def int8_backbone_apply(q: dict, x) -> torch.Tensor:
+def int8_backbone_apply(q: dict, x, fuse_stages=()) -> torch.Tensor:
     """Preprocessed NHWC images -> pooled [B, 2048] f32 features.
 
     3-channel inputs are ImageNet-normalized images; 1-channel inputs must be
     the centered raw gray of ``preprocess_batch_device_gray`` (v = u - 0.5),
-    quantized at the static GRAY_SCALE into the folded gray stem."""
+    quantized at the static GRAY_SCALE into the folded gray stem.
+    ``fuse_stages``: the 1-based stages whose stride-1 blocks run fused."""
     sc = q["scales"]
     gray = x.shape[-1] == 1 and "stem_gray" in q
     if gray:
@@ -288,6 +297,10 @@ def int8_backbone_apply(q: dict, x) -> torch.Tensor:
         d = q[name]
         stride = 2 if (stage > 0 and block == 0) else 1
         s1, s2, so = (sc[f"{name}.{k}"] for k in ("a1", "a2", "out"))
+        if block > 0 and stage + 1 in fuse_stages:
+            xi = fused_bottleneck_int8(xi, **fold_block_epilogues(d, sx, s1, s2, so))
+            sx = so
+            continue
         a, h1, w1 = _conv_s8(xi, d["conv1"], sx, s1, 1)
         a, h2, w2 = _conv_s8(a.reshape(b, h1, w1, -1), d["conv2"], s1, s2, stride)
         if "down" in d:

@@ -13,15 +13,21 @@ Port of ``mmdx_tpu/ops/preprocess.py`` (``preprocess_exact`` ``:29-65``,
   outside any kernel, so plain torch ops;
 * ``preprocess_batch_device_gray`` — the same resize + crop for 1-channel
   batches, emitting the centered raw gray v = u - 0.5 that the int8 tower's
-  folded gray stem takes (turbo mode).
+  folded gray stem takes (turbo mode);
+* ``preprocess_batch_fused`` — ``preprocess_batch_device``'s function as one
+  hand-written kernel, the port of ``pallas_preprocess.py`` (Queue 2 row 17);
+  like the Pallas function, no engine mode calls it.
 
 Outputs are NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from mmdx_tpu_torch import _build
 from mmdx_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from mmdx_tpu_torch.ops import resize as R
 
@@ -87,3 +93,84 @@ def preprocess_batch_device(batch_u8: torch.Tensor, img_size: int = 224,
     scale = 1.0 / (255.0 * std_t)
     shift = mean_t / std_t
     return (x * scale - shift).to(out_dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Queue 2 row 17: the fused preprocessing kernel
+# ---------------------------------------------------------------------------
+def _band(k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per row of a coefficient matrix, the [lo, hi) of its nonzero entries
+    (0, 0 for an all-zero row)."""
+    nz = k != 0
+    any_ = nz.any(axis=1)
+    lo = np.where(any_, nz.argmax(axis=1), 0)
+    hi = np.where(any_, k.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+_PREPROC_SMEM = 96 * 1024  # bytes of the row pass's slice per block
+
+
+@functools.lru_cache(maxsize=32)
+def _fused_consts(h: int, w: int, resize_size: int, img_size: int, mean, std):
+    """Host constants of ``pallas_preprocess.preprocess_batch_pallas``: the
+    resize + crop matrices, their row bands, and the f32 scale and shift."""
+    kh, kw = R.fused_resize_crop_matrices(h, w, resize_size, img_size)
+    scale = (1.0 / (255.0 * np.asarray(std, np.float32))).astype(np.float32)
+    shift = (np.asarray(mean, np.float32) / np.asarray(std, np.float32)).astype(np.float32)
+    return kh, kw, _band(kh), _band(kw), scale, shift
+
+
+def preprocess_batch_fused_plain(batch_u8, img_size: int = 224, resize_size: int = 256,
+                                 mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: per image and channel ``(kh @ img @ kw^T) *
+    scale - shift`` as two f32 matmuls (TF32 must be off on the card)."""
+    b, h, w, c = batch_u8.shape
+    kh, kw, _, _, scale, shift = _fused_consts(h, w, resize_size, img_size,
+                                               tuple(mean), tuple(std))
+    dev = batch_u8.device
+    img = batch_u8.permute(0, 3, 1, 2).to(torch.float32)  # [B, C, H, W]
+    if c == 1:
+        img = img.expand(b, 3, h, w)
+    res = torch.from_numpy(kh).to(dev) @ img @ torch.from_numpy(kw).to(dev).T
+    out = res * torch.from_numpy(scale).to(dev)[:, None, None] \
+        - torch.from_numpy(shift).to(dev)[:, None, None]
+    return out.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+def preprocess_batch_fused(batch_u8: torch.Tensor, img_size: int = 224,
+                           resize_size: int = 256, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """uint8 NHWC [B, H, W, 1|3] -> normalized [B, S, S, 3] NHWC: port of
+    ``mmdx_tpu/ops/pallas_preprocess.py:preprocess_batch_pallas``, the same
+    function as ``preprocess_batch_device`` in one kernel
+    (``csrc/preprocess.cu``: one block per band of output rows, channel and
+    image, which keeps the row pass's slice in shared memory and sums each
+    row's nonzero band of coefficients). No engine mode calls it, as in the
+    JAX package.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if batch_u8.device.type == "cpu":
+        return preprocess_batch_fused_plain(batch_u8, img_size, resize_size, mean, std,
+                                            out_dtype)
+    b, h, w, c = batch_u8.shape
+    if c not in (1, 3):
+        raise ValueError(f"preprocess_batch_fused: expected 1 or 3 channels, got {c}")
+    _build.require(batch_u8, "preprocess_batch_fused.batch_u8", torch.uint8, (b, h, w, c))
+    kh, kw, (hlo, hhi), (wlo, whi), scale, shift = _fused_consts(
+        h, w, resize_size, img_size, tuple(mean), tuple(std))
+    dev = batch_u8.device
+    consts = [torch.from_numpy(a).to(dev) for a in (kh, kw, hlo, hhi, wlo, whi, scale, shift)]
+    w0, w1 = int(wlo.min()), int(whi.max())
+    rows = max(1, min(16, _PREPROC_SMEM // max(1, 4 * (w1 - w0))))
+    out = torch.empty((b, img_size, img_size, 3), dtype=torch.float32, device=dev)
+    _build.check(_build.lib().mmdx_preprocess(
+        batch_u8.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(), b, h, w, c,
+        img_size, rows, w0, w1, _build.stream(batch_u8)), "preprocess_batch_fused")
+    preprocess_batch_fused.launches += 1
+    return out if out_dtype == torch.float32 else out.to(out_dtype)
+
+
+preprocess_batch_fused.launches = 0

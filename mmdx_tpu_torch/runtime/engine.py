@@ -15,7 +15,9 @@ Port of ``mmdx_tpu/runtime/engine.py`` with the same public surface
   are chosen by the mode and the switches below; on CPU tensors their
   wrappers run the plain versions;
 * ``turbo`` — fast mode with the static-PTQ int8 image tower
-  (``models/resnet_int8``, every conv through the int8 GEMM kernel), the
+  (``models/resnet_int8``, every conv through the int8 GEMM kernel;
+  ``MMDX_INT8_FUSED_BLOCKS=1,2`` runs the stride-1 blocks of those stages
+  as fused int8 bottlenecks, read once at construction), the
   text tower's blocks in their W8A8 form (``MMDX_TEXT_INT8=0`` keeps them
   bf16, ``MMDX_TEXT_INT8=1`` turns them on in fast mode too, as in the JAX
   engine's TPU branch), and 1-channel batches through the centered-gray
@@ -33,6 +35,13 @@ fast and turbo mode (parity mode ignores them, as ``engine.py:80``, ``:154``):
   read kernel instead of the deferred partials (default on; greedy and the
   int8 cache never defer, ``engine.py:422-427``).
 
+In fast and turbo mode the engine's model runs the text tower with
+``use_flash_attention`` on (blockwise attention at 256 tokens and more; a
+configuration with ``max_len`` 512, BERT-base's own limit, buckets texts at
+176 / 256 / 344 / 512) and the image tower with ``use_folded_bn`` on, as the
+JAX engine's TPU branch sets them (``engine.py:87-113``): the fused bf16
+bottleneck stays off in every mode.
+
 ``MMDX_GREEDY_FLAT`` and ``MMDX_DECODE_SEGMENTS`` are TPU layout knobs and
 are not ported: greedy always runs over the flat cache at nb = 1, and the
 cache is one full-length buffer. Multi-device serving is not ported yet
@@ -40,7 +49,6 @@ cache is one full-length buffer. Multi-device serving is not ported yet
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 import sys
@@ -103,6 +111,9 @@ class InferenceEngine:
         self.kv_int8 = self.kernels and env("MMDX_KV_INT8", "") == "1"
         self.fused_lm_head = self.kernels and env("MMDX_FUSED_LM_HEAD", "") == "1"
         self.defer_kv = env("MMDX_DEFER_KV", "1") != "0"
+        self.int8_fused_blocks = tuple(sorted(
+            {int(x) for x in env("MMDX_INT8_FUSED_BLOCKS", "").split(",") if x.strip()}
+        )) if mode == "turbo" else ()
         self._qparams = None
         self.calibration_ms = None  # host time of the first-batch calibration
         self.canonical_size = canonical_size
@@ -111,11 +122,17 @@ class InferenceEngine:
         if mode == "parity":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        # turbo never runs the bf16 backbone (the int8 tower folds from
-        # bundle.model), so its copy stays off the card: the memo maps it to None
-        skip = {id(bundle.model.image_encoder.backbone): None} if mode == "turbo" else {}
-        model = copy.deepcopy(bundle.model, skip).to(self.device)
-        self.model = model.cast_(self.dtype).eval()
+        cfg = bundle.config
+        if self.kernels:  # the JAX engine's switches (engine.py:87-113)
+            cfg = dataclasses.replace(
+                cfg, text=dataclasses.replace(cfg.text, use_flash_attention=True),
+                image=dataclasses.replace(cfg.image, use_folded_bn=True))
+        model = bundle.model.with_config(cfg)
+        if mode == "turbo":
+            # turbo never runs the bf16 backbone (the int8 tower folds from
+            # bundle.model), so it stays off the card
+            model.image_encoder.backbone = None
+        self.model = model.to(self.device).cast_(self.dtype).eval()
         if self.text_int8:
             with torch.inference_mode():
                 self.model.text_encoder.quantize_int8_()
@@ -209,7 +226,7 @@ class InferenceEngine:
                 x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
                                             cfg.mean, cfg.std, out_dtype=self.dtype)
             with torch.inference_mode():
-                feats = ri.int8_backbone_apply(qparams, x)
+                feats = ri.int8_backbone_apply(qparams, x, self.int8_fused_blocks)
                 probs, z_img, z_txt = self.model.classify_from_image_feats(
                     feats, *tokens, kernels=self.kernels, int8=self.text_int8)
         else:

@@ -29,7 +29,15 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      the gray classifies the device time of the image tower's convolutions:
      cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
      (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode. The full
-     tables go to the git-ignored output directory (``out_dir`` below).
+     tables go to the git-ignored output directory (``out_dir`` below);
+  5. the routes of Queue 2 rows 9, 12, 13 and 17, each pair in turns (A, B,
+     B, A) three times after a warm-up: long-text fast classify at L=512
+     (``max_len`` 512, flash attention in every layer) at B=4 and B=32, one
+     of them profiled; turbo classify of 256x256 RGB images at B=32 with and
+     without ``MMDX_INT8_FUSED_BLOCKS=1,2`` on the same int8 tower; the bf16
+     image tower with ``use_fused_bottleneck`` against the cuDNN tower at
+     B=32 on 224x224 inputs; ``preprocess_batch_fused`` against
+     ``preprocess_batch_device`` at B=32 on 512x512x3 uint8 images.
 """
 from __future__ import annotations
 
@@ -185,8 +193,93 @@ def main() -> int:
     for mode in ("fast", "turbo"):
         ops = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
         conv_time(f"{mode} classify gray B=32", ops)
+    long_text_and_fused_routes(bundle, turbo, rng, out_dir, torch.device("cuda", 0))
     log(f"tables in {out_dir}")
     return 0
+
+
+def in_turns(label: str, a: tuple, b: tuple) -> None:
+    """Time two callables (name, fn) in turns a, b, b, a, three times, after
+    one warm-up call each."""
+    for _, fn in (a, b):
+        fn()
+    times = {a[0]: [], b[0]: []}
+    for _ in range(3):
+        for name, fn in (a, b, b, a):
+            times[name].append(synced_ms(fn)[1])
+    log(f"{label}: " + ", ".join(f"{k} ms {sorted(v)}" for k, v in times.items()))
+
+
+def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from mmdx_tpu_torch.models.layers import cast_
+    from mmdx_tpu_torch.models.resnet import ImageEncoder
+    from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
+                                               preprocess_batch_fused)
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    config = bundle.config
+    lb = dataclasses.replace(bundle, config=dataclasses.replace(
+        config, text=dataclasses.replace(config.text, max_len=512)))
+    fast = InferenceEngine(lb, mode="fast", device=dev)
+    words = "cough fever dyspnea effusion opacity chest pain left".split()
+    text = " ".join(words[i % len(words)] for i in range(500))
+    for b in (4, 32):
+        images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(b)]
+        fn = (lambda images=images, b=b: fast.classify_batch(images, [text] * b, pad_to=b))
+        fn()
+        cls = sorted(synced_ms(fn)[1] for _ in range(3))
+        log(f"long text L=512 B={b}: fast classify ms {cls}")
+        if b == 32:
+            ops = profiled("fast classify long text L=512 B=32", fn, out_dir)
+            flash = sum(t for k, (t, _) in ops.items() if "flash_attn_kernel" in k)
+            log(f"--- flash_attn_kernel device time {flash:.3f} ms over 12 layers")
+    del fast
+
+    images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(32)]
+    os.environ["MMDX_INT8_FUSED_BLOCKS"] = "1,2"
+    try:
+        fused = InferenceEngine(bundle, mode="turbo", device=dev)
+    finally:
+        os.environ.pop("MMDX_INT8_FUSED_BLOCKS")
+    fused._qparams = turbo._ensure_qparams()
+    texts = [TEXTS[i % len(TEXTS)] for i in range(32)]
+    in_turns("turbo classify RGB B=32",
+             ("unfused", lambda: turbo.classify_batch(images, texts, pad_to=32)),
+             ("MMDX_INT8_FUSED_BLOCKS=1,2",
+              lambda: fused.classify_batch(images, texts, pad_to=32)))
+    ops = profiled("turbo classify RGB B=32 fused blocks",
+                   lambda: fused.classify_batch(images, texts, pad_to=32), out_dir)
+    k13 = sum(t for k, (t, _) in ops.items() if "int8_bottleneck_kernel" in k)
+    log(f"--- int8_bottleneck_kernel device time {k13:.3f} ms (5 blocks)")
+    del fused
+
+    cfg = config.image
+    encoders = []
+    for c in (dataclasses.replace(cfg, use_fused_bottleneck=True), cfg):
+        e = ImageEncoder(c)
+        e.load_state_dict(bundle.model.image_encoder.state_dict())
+        encoders.append(cast_(e, torch.bfloat16).to(dev).eval())
+    x = torch.randn(32, 224, 224, 3, generator=torch.Generator().manual_seed(SEED))
+    x = x.to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        in_turns("bf16 image tower B=32 at 224",
+                 ("cuDNN", lambda: encoders[1].encode(x)),
+                 ("use_fused_bottleneck", lambda: encoders[0].encode(x)))
+        ops = profiled("fused bf16 image tower B=32", lambda: encoders[0].encode(x), out_dir)
+    k12 = sum(t for k, (t, _) in ops.items() if "bottleneck_kernel" in k
+              and "int8" not in k)
+    log(f"--- bottleneck_kernel device time {k12:.3f} ms (6 blocks)")
+
+    batch = torch.from_numpy(rng.integers(0, 256, (32, 512, 512, 3), dtype=np.uint8)).to(dev)
+    in_turns("preprocessing B=32 512x512x3",
+             ("matmul", lambda: preprocess_batch_device(batch)),
+             ("fused", lambda: preprocess_batch_fused(batch)))
 
 
 if __name__ == "__main__":
