@@ -14,7 +14,11 @@ Phases (any failure exits nonzero):
      exactly, outside reported near-ties), the median time of each over 30
      runs (CUDA events), the least time the card could take for the same
      work, and for the bf16 cache read and flash attention the time of the
-     library call of the same function (scaled_dot_product_attention);
+     library call of the same function (scaled_dot_product_attention); for
+     rows 5, 7 and 9 (and the library call) also the device time per call
+     from a CUDA graph of 20 calls, which leaves out the wrapper's host time;
+     rows 5 and 7 also against their plain version's bits (BITS_SHARE,
+     BITS_ULP); row 9 fails unless each shape ran the body its rule names;
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
@@ -63,6 +67,11 @@ FLASH_ATOL, FLASH_RTOL = 2e-3, 1e-2
 # K3's acc, m and l are f32 sums over the same bf16 products as its plain
 # version, so they agree to f32 summation order, far inside this bound
 K3_ATOL, K3_RTOL = 1e-4, 1e-3
+# rows 5 and 7 beside ATOL: p and ctx are rounded to bf16 at the plain
+# version's points, so only a summation order near a rounding tie can move
+# an output, by an ulp or two; a wrong merge of the cluster's partials or
+# statistics moves many outputs by many ulps
+BITS_SHARE, BITS_ULP = 1e-3, 2
 # rows 10 and 11: f32 logits of bf16 products summed over D = 512 on the
 # tensor cores and in the plain f32 product: summation order only
 DEC_TOL = 1e-4
@@ -134,6 +143,22 @@ def median_ms(fn, runs: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call without the host's share: ``calls`` calls
+    captured in one CUDA graph, the median replay time over ``calls``. For
+    kernels shorter than their wrapper's host time, which ``median_ms``
+    (one call between two events) measures instead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, runs=replays, warmup=2) / calls
+
+
 def bound(nbytes: float, int8_ops: float = 0.0, bf16_ops: float = 0.0,
           f32_ops: float = 0.0):
     """(ms, "bytes" | "operations"): the least time the card could take,
@@ -162,6 +187,27 @@ def compare(name: str, got, ref, atol: float = ATOL, rtol: float = RTOL) -> floa
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def compare_bits(name: str, got, ref, share: float = BITS_SHARE,
+                 max_ulp: int = BITS_ULP) -> None:
+    """Fail unless at most ``share`` of the bf16 outputs differ from the
+    plain version's bits (at least one may), each by at most ``max_ulp``
+    units in the last place (+0 and -0 are one value)."""
+    import torch
+
+    def ordered(t):  # bf16 bit patterns on one integer line, in value order
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    ulps = (ordered(got) - ordered(ref)).abs()
+    n_diff, worst = int((ulps != 0).sum()), int(ulps.max())
+    ok = n_diff <= max(1, int(share * got.numel())) and worst <= max_ulp
+    log(f"  {name}: {n_diff} of {got.numel()} bf16 outputs differ from the plain version's "
+        f"bits, by at most {worst} ulp (limit {share:.1%} of them, {max_ulp} ulp) -> "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: kernel is not within {max_ulp} ulp of its plain version's bits")
 
 
 def compare_exact(name: str, got, ref) -> float:
@@ -363,19 +409,25 @@ def near_tie(top2, tol_abs=DEC_TOL, tol_rel=DEC_TOL):
 
 def phase_decode_kernels(device, g) -> dict:
     """Rows 5 and 7 (the normalised cache reads, bf16 and int8) at greedy's
-    B=4, nb=1 and beam's B=8, nb=4 (Lmax 181, 8 heads of 64); rows 10 and 11
+    B=4, nb=1 and beam's B=8, nb=4 (Lmax 181, 8 heads of 64), and at K=5
+    and K=727 with a fully masked query row; rows 10 and 11
     (the streamed lm head, T5 vocabulary 32128 x 512) at N=4, 64 (greedy)
-    and N=16, 128 (beam). -> records of the last shape of each."""
+    and N=16, 128 (beam). -> records of the beam shape (rows 5, 7) and of
+    the last shape (rows 10, 11)."""
     import torch
     import torch.nn.functional as F
 
     from mmdx_tpu_torch.ops import beam_attn, lm_head
 
     out = {}
-    heads, d, lmax = 8, 64, 181
+    heads, d = 8, 64
     hd = heads * d
-    for b, nb in ((4, 1), (8, 4)):
+    # greedy and beam at Lmax 181 (the records: beam's); then K = 5, fewer
+    # keys than the cluster's 8 blocks, and K = 727, not a multiple of 8,
+    # each with one query row whose every column is masked
+    for b, nb, lmax in ((4, 1, 181), (8, 4, 181), (4, 1, 5), (2, 1, 727)):
         kk, pos = nb * lmax, lmax - 1
+        masked_row = lmax != 181
         q = (torch.randn(b, nb, hd, generator=g) * 0.5).to(device, torch.bfloat16)
         kv32 = torch.randn(b, kk, 2 * hd, generator=g) * 0.5
         kv = kv32.to(device, torch.bfloat16)
@@ -385,7 +437,10 @@ def phase_decode_kernels(device, g) -> dict:
         anc = torch.randint(0, nb, (b, nb, lmax), generator=g)
         anc = torch.where(t[None, None, :] == pos, torch.arange(nb)[None, :, None], anc)
         live = anc[..., None] == torch.arange(nb)
-        mask = torch.where(live.reshape(b, nb, kk), 0.0, -1e9).to(device)
+        mask = torch.where(live.reshape(b, nb, kk), 0.0, -1e9)
+        if masked_row:
+            mask[-1, 0] = -1e9
+        mask = mask.to(device)
         kv8, kvs = beam_attn.quantize_kv_rows(kv32[..., :hd].to(device),
                                               kv32[..., hd:].to(device), heads)
         for name, fn, plain, args in (
@@ -394,8 +449,11 @@ def phase_decode_kernels(device, g) -> dict:
                 ("beam_attn_int8", beam_attn.beam_decode_attention_int8,
                  beam_attn.beam_decode_attention_int8_plain, (q, kv8, kvs, mask, bias))):
             row = 5 if name == "beam_attn" else 7
-            log(f"row {row} {fn.__name__}: B={b}, nb={nb}, K={kk}, {heads} heads")
-            err = compare(f"row {row} B={b} nb={nb}", fn(*args), plain(*args))
+            log(f"row {row} {fn.__name__}: B={b}, nb={nb}, K={kk}, {heads} heads"
+                + (", one query row with every column masked" if masked_row else ""))
+            got, ref = fn(*args), plain(*args)
+            err = compare(f"row {row} B={b} nb={nb} K={kk}", got, ref)
+            compare_bits(f"row {row} B={b} nb={nb} K={kk}", got, ref)
             ms, pms = median_ms(lambda: fn(*args)), median_ms(lambda: plain(*args))
             cache_bytes = b * kk * 2 * hd * (2 if row == 5 else 1) + \
                 (b * 2 * heads * kk * 4 if row == 7 else 0)
@@ -412,7 +470,14 @@ def phase_decode_kernels(device, g) -> dict:
             log(f"  row {row} kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} (median of 30); "
                 f"bound {bms:.4f} ms ({by}); {nbytes / ms / 1e6:.1f} GB/s")
-            out[name] = (err, ms, pms, bms, by, lib_ms)
+            gms = graph_ms(lambda: fn(*args))
+            glib = None if lib_ms is None else graph_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=am, scale=1.0))
+            log(f"  row {row} K={kk} device time per call (CUDA graph of 20): kernel "
+                f"{gms:.4f} ms, library {'none' if glib is None else f'{glib:.4f} ms'}; "
+                f"{nbytes / gms / 1e6:.1f} GB/s")
+            if (b, nb) == (8, 4):
+                out[name] = (err, ms, pms, bms, by, lib_ms)
 
     v, dm = 32128, 512
     emb = torch.randn(v, dm, generator=g).to(device, torch.bfloat16)
@@ -486,8 +551,18 @@ def phase_route_kernels(device, g) -> dict:
 
     heads, d = 12, 64
     hd = heads * d
-    for b, l in ((32, 512), (4, 512), (32, 344), (4, 344)):
-        qkv = (torch.randn(b * l, 3 * hd, generator=g) * 0.5).to(device, bf)
+    # BERT's scale 1/8 on bf16 takes the tensor-core body; the f32 shape and
+    # the bf16 one with a scale that is not a power of two (at the first
+    # shape, so its time beside the tensor-core body's is the same work) hold
+    # the CUDA-core body; the last shape holds the tensor-core body's bias
+    # read per element, with a causal mask over the key mask as a full
+    # [B, heads, L, L] bias
+    for b, l, dt, scale, causal in (
+            (32, 512, bf, d ** -0.5, False), (4, 512, bf, d ** -0.5, False),
+            (32, 344, bf, d ** -0.5, False), (4, 344, bf, d ** -0.5, False),
+            (4, 512, torch.float32, d ** -0.5, False), (32, 512, bf, 0.1, False),
+            (4, 344, bf, d ** -0.5, True)):
+        qkv = (torch.randn(b * l, 3 * hd, generator=g) * 0.5).to(device, dt)
 
         def split(i):  # [B, heads, L, d] views of the merged rows, as in BERT
             return qkv[:, i * hd:(i + 1) * hd].reshape(b, l, heads, d).permute(0, 2, 1, 3)
@@ -495,21 +570,41 @@ def phase_route_kernels(device, g) -> dict:
         q, k, v = split(0), split(1), split(2)
         lens = torch.randint(l // 4, l + 1, (b,), generator=g)
         bias = torch.where(torch.arange(l)[None, :] < lens[:, None], 0.0, -1e9)
-        bias = bias.reshape(b, 1, 1, l).to(device)
-        scale = 1.0 / d ** 0.5
-        log(f"row 9 flash_attention: B={b}, {heads} heads, L={l}, d={d} bf16, key mask")
+        bias = bias.reshape(b, 1, 1, l)
+        if causal:
+            future = torch.arange(l)[None, :] > torch.arange(l)[:, None]
+            bias = (bias + torch.where(future, -1e9, 0.0)).expand(b, heads, l, l)
+        bias = bias.contiguous().to(device)
+        body = "tensor-core" if fa.tensor_core_body(dt, scale) else "CUDA-core"
+        mask_kind = "causal + key mask [B, heads, L, L]" if causal else "key mask"
+        label = (f"row 9 B={b} L={l} {str(dt)[6:]} scale {scale:g}"
+                 + (" causal" if causal else ""))
+        log(f"row 9 flash_attention: B={b}, {heads} heads, L={l}, d={d} {str(dt)[6:]}, "
+            f"scale {scale:g}, {mask_kind}: the {body} body")
+        tc0, fma0 = fa.flash_attention.tc_launches, fa.flash_attention.fma_launches
         with full_f32():
-            err = compare(f"row 9 B={b} L={l}", fa.flash_attention(q, k, v, bias, scale),
+            err = compare(label, fa.flash_attention(q, k, v, bias, scale),
                           fa.flash_attention_plain(q, k, v, bias, scale),
                           FLASH_ATOL, FLASH_RTOL)
             pms = median_ms(lambda: fa.flash_attention_plain(q, k, v, bias, scale))
+        ran = ("tensor-core" if fa.flash_attention.tc_launches > tc0 else
+               "CUDA-core" if fa.flash_attention.fma_launches > fma0 else "none")
+        if ran != body:
+            fail(f"{label}: expected the {body} body, the launch went to {ran}")
         ms = median_ms(lambda: fa.flash_attention(q, k, v, bias, scale))
-        mask_bf = bias.to(bf)
+        mask_lib = bias.to(dt)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask_bf, scale=scale))
-        nbytes = 4 * b * heads * l * d * 2 + 4 * b * l
-        record("flash_attention", (err, ms, pms) + bound(
-            nbytes, bf16_ops=2 * 2 * b * heads * l * l * d) + (lib_ms,), f"row 9 B={b} L={l}")
+            q, k, v, attn_mask=mask_lib, scale=scale))
+        nbytes = 4 * b * heads * l * d * q.element_size() + 4 * bias.numel()
+        ops = 2 * 2 * b * heads * l * l * d
+        rec = (err, ms, pms) + (bound(nbytes, bf16_ops=ops) if dt == bf
+                                else bound(nbytes, f32_ops=ops)) + (lib_ms,)
+        gms = graph_ms(lambda: fa.flash_attention(q, k, v, bias, scale))
+        glib = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask_lib, scale=scale))
+        log(f"  {label}: ran the {ran} body; {ops / ms / 1e9:.1f} TFLOP/s achieved; device "
+            f"time per call (CUDA graph of 20): kernel {gms:.4f} ms, library {glib:.4f} ms")
+        record("flash_attention", rec, label)
 
     def s8(*shape):
         return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)

@@ -58,6 +58,8 @@ SIGNATURES = {
     # q, k, v, bias, out, strides (q, k, v: b h l; bias: b h q k; out: b h l),
     # B, H, Lq, Lk, Lk_pad, scale, is_bf16, stream
     "mmdx_flash_attn": [_P] * 5 + [_L] * 16 + [_I] * 5 + [_F, _I, _P],
+    # the same without is_bf16 (bf16 only, tensor cores)
+    "mmdx_flash_attn_tc": [_P] * 5 + [_L] * 16 + [_I] * 5 + [_F, _P],
     # x, w1, k1, b1, w2, k2, b2, w3, k3, b3, kx, out, B, H, W, C, M, TR, stream
     "mmdx_int8_bottleneck": [_P] * 10 + [_F, _P] + [_I] * 6 + [_P],
     # x, w1, b1, w2, b2, w3, b3, wp, bp, out, B, H, W, Cin, M, Cout, TR,

@@ -81,10 +81,13 @@ def default_vocabs():
 # JAX variable tree -> port state dict
 # ---------------------------------------------------------------------------
 def _fold_conv(kernel, bn: dict, stats: dict, eps: float):
-    """HWIO kernel + BN -> (OIHW weight, bias), folded in f32 as
-    ``pallas_bottleneck.fold_bn``."""
-    s = np.asarray(bn["scale"], np.float32) / np.sqrt(
-        np.asarray(stats["var"], np.float32) + np.float32(eps))
+    """HWIO kernel + BN -> (OIHW weight, bias), folded in f32 in the order of
+    ``pallas_bottleneck.fold_bn``: ``scale * rsqrt(var + eps)``, the sum in
+    f32 and its reciprocal square root rounded to f32 once (XLA's CPU
+    ``rsqrt`` is an estimate, so its last bit is not a fixed target)."""
+    ve = np.asarray(stats["var"], np.float32) + np.float32(eps)
+    r = (1.0 / np.sqrt(ve.astype(np.float64))).astype(np.float32)
+    s = np.asarray(bn["scale"], np.float32) * r
     w = np.asarray(kernel, np.float32) * s
     b = np.asarray(bn["bias"], np.float32) - np.asarray(stats["mean"], np.float32) * s
     return np.transpose(w, (3, 2, 0, 1)), b

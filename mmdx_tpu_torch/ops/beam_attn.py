@@ -20,12 +20,13 @@ is [B, nb*Lmax, 2*h*d] bf16, position-major (row t*nb + j = slot j's token
 t), k|v packed in the minor dim. The JAX wrapper splits m and l out of an
 interleaved [B, nb, 2h] output; this one returns them directly.
 
-Kernel (CUDA C++, ``csrc/beam_attn.cu``), one launch, one block per
-(sample, head). What bounds it on the H100: bytes. Every decode step reads
-the whole cache once per layer (at B=8, K=724: 8 x 724 x 2 KB = 11.9 MB)
-for only nb = 4 query rows, so the products run in f32 on the CUDA cores;
-the design streams each k and v row once with 16-byte loads and keeps the
-nb x K scores in shared memory.
+Kernels (CUDA C++, ``csrc/beam_attn.cu``), one launch each. What bounds
+them on the H100: bytes. Every decode step reads the whole cache once per
+layer (at B=8, K=724: 8 x 724 x 2 KB = 11.9 MB) for only nb = 4 query
+rows, so the products run in f32 on the CUDA cores, each k and v row
+read once. The partials run one block per (sample, head); the normalised
+reads a cluster of 8 blocks per (sample, head), each block an eighth of the
+keys, copied to shared memory 16 bytes at a time.
 
 Masks are additive -1e9, never -inf (models/t5.NEG_INF): at pos = 0 every
 cache column is masked, m is about -1e9, and the composition's
@@ -172,11 +173,13 @@ def beam_decode_attention(q, kv, mask, bias):
     cache (port of ``pallas_beam_attn.beam_decode_attention``; at nb = 1 the
     flat greedy read).
 
-    Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn``), one launch,
-    one block per (sample, head), the partials kernel's passes with the
-    softmax normalised in shared memory and ctx rounded to bf16. Bounded by
-    bytes: the whole cache once per layer per step (B=8, nb=4, K=724: 11.9
-    MB; greedy B=4, K=181: 1.5 MB), each k and v row streamed once.
+    Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn``), one launch:
+    a thread-block cluster of 8 blocks per (sample, head), each block a
+    contiguous eighth of the keys, the softmax max and sum and the partial
+    products merged through distributed shared memory (``sm_90``'s
+    clusters), ctx rounded to bf16. Bounded by bytes: the whole cache once
+    per layer per step (B=8, nb=4, K=724: 11.9 MB; greedy B=4, K=181: 1.5
+    MB), each k and v row copied once, 16 bytes at a time.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, d = 64, nb <= 8) or raise."""
@@ -200,10 +203,10 @@ def beam_decode_attention_int8(q, kv, kvs, mask, bias):
     ``pallas_beam_attn.beam_decode_attention_int8``).
 
     Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn_int8``): the
-    bf16 read's kernel instantiated for int8 rows (8-byte loads of the key
-    slices), the K scale applied to each score and the V scale folded into
-    the probabilities, as in the Pallas body. Bounded by bytes: half the bf16
-    cache plus 8 bytes of scales per row and head.
+    bf16 read's cluster kernel instantiated for int8 rows (64-byte key and
+    value slices), the K scale applied to each score and the V scale folded
+    into the probabilities, as in the Pallas body. Bounded by bytes: half
+    the bf16 cache plus 8 bytes of scales per row and head.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""

@@ -13,17 +13,23 @@ times ``scale``; f32 scores plus the bias; the running max (from -1e9) and
 denominator in f32; the probabilities in f32, multiplied by v in f32;
 ``acc / denom`` cast to q's dtype.
 
-Kernel (CUDA C++, ``csrc/flash_attn.cu``), one launch: a block per (64 query
-rows, sequence x head), the K/V tiles staged through shared memory, every
-product in f32 on the CUDA cores. It reads q, k, v and the bias through
-their strides and writes ``out`` as a ``[B, H, Lq, D]`` view of a
-``[B, Lq, H, D]`` buffer, so BERT's head split and merge cost no copies. It
-takes D = 64 (BERT-base's head width) and L up to any length. The source
-notes what bounds it.
+Kernels (CUDA C++, ``csrc/flash_attn.cu``), one launch, a block per (64
+or 128 query rows, sequence x head), in one of two bodies picked by
+:func:`tensor_core_body`: bf16 operands with a power-of-two ``scale``
+(BERT's 1/8) run the tensor-core body (``mma.sync`` bf16 products, exact in
+f32, with p split into two bf16 halves for p.v, and K/V tiles streamed by
+``cp.async``); f32 operands or any other scale run the CUDA-core body
+(every product an f32 FMA). Both read q, k, v and the bias through their
+strides and write ``out`` as a ``[B, H, Lq, D]`` view of a ``[B, Lq, H, D]``
+buffer, so BERT's head split and merge cost no copies. They take D = 64
+(BERT-base's head width) and L up to any length. The source notes what
+bounds them.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,11 +79,25 @@ def _check_operand(t, name: str, dtype, b: int, h: int, d: int) -> None:
                          f"16-byte aligned, got strides {t.stride()}")
 
 
+def tensor_core_body(dtype, scale: float) -> bool:
+    """The rule that picks the kernel's body: the tensor-core body for bf16
+    operands and a positive power-of-two ``scale``, where bf16 q times the
+    scale is exact and the tensor cores' f32 sums of exact bf16 products are
+    the Pallas body's f32 scores up to summation order; the CUDA-core body
+    for every other case (f32 operands, as the parity engine passes, or a
+    scale whose product with q would round)."""
+    return (dtype == torch.bfloat16 and math.isfinite(scale) and scale > 0
+            and math.frexp(scale)[0] == 0.5)
+
+
 def flash_attention(q, k, v, bias, scale: float = 1.0) -> torch.Tensor:
     """q [B, H, Lq, D], k/v [B, H, Lk, D] (bf16 or f32); bias additive,
     broadcastable to [B, H, Lq, Lk] -> [B, H, Lq, D] in q.dtype.
 
-    ``scale`` multiplies q (1/sqrt(D) for BERT)."""
+    ``scale`` multiplies q (1/sqrt(D) for BERT). On the card the launch
+    goes to the body :func:`tensor_core_body` names, counted in
+    ``flash_attention.tc_launches`` or ``.fma_launches`` and, both together,
+    in ``.launches``; a body that fails to build or launch raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     b, h, lq, d = q.shape
@@ -95,14 +115,21 @@ def flash_attention(q, k, v, bias, scale: float = 1.0) -> torch.Tensor:
                          f"{bias.dtype} on {bias.device}")
     bias = torch.broadcast_to(bias, (b, h, lq, lk))  # a view: broadcast strides 0
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    st = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias.stride(),
-          *out.stride()[:3]]
-    _build.check(_build.lib().mmdx_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        *st, b, h, lq, lk, padded_key_len(lk), float(scale),
-        int(q.dtype == torch.bfloat16), _build.stream(q)), "flash_attention")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias.stride(),
+            *out.stride()[:3], b, h, lq, lk, padded_key_len(lk), float(scale)]
+    lib = _build.lib()
+    if tensor_core_body(q.dtype, scale):
+        _build.check(lib.mmdx_flash_attn_tc(*args, _build.stream(q)), "flash_attention (tc)")
+        flash_attention.tc_launches += 1
+    else:
+        _build.check(lib.mmdx_flash_attn(*args, int(q.dtype == torch.bfloat16),
+                                         _build.stream(q)), "flash_attention")
+        flash_attention.fma_launches += 1
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.fma_launches = 0

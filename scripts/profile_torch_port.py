@@ -28,12 +28,13 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      host's self CPU total and op count, the top ops by device time, and for
      the gray classifies the device time of the image tower's convolutions:
      cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
-     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode. The full
+     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode, and for
+     the greedy generates row 5's (``beam_attn_kernel``) share. The full
      tables go to the git-ignored output directory (``out_dir`` below);
   5. the routes of Queue 2 rows 9, 12, 13 and 17, each pair in turns (A, B,
      B, A) three times after a warm-up: long-text fast classify at L=512
-     (``max_len`` 512, flash attention in every layer) at B=4 and B=32, one
-     of them profiled; turbo classify of 256x256 RGB images at B=32 with and
+     (``max_len`` 512, flash attention in every layer) at B=4 and B=32, the
+     latter profiled with row 9's share (both bodies, ``flash_attn*``); turbo classify of 256x256 RGB images at B=32 with and
      without ``MMDX_INT8_FUSED_BLOCKS=1,2`` on the same int8 tower; the bf16
      image tower with ``use_fused_bottleneck`` against the cuDNN tower at
      B=32 on 224x224 inputs; ``preprocess_batch_fused`` against
@@ -69,7 +70,7 @@ def synced_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profiled(name: str, fn, out_dir: Path) -> dict:
+def profiled(name: str, fn, out_dir: Path) -> tuple[dict, float]:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -93,21 +94,19 @@ def profiled(name: str, fn, out_dir: Path) -> dict:
     (out_dir / f"{name.replace(' ', '_').replace('=', '')}.txt").write_text(table)
     for row in table.splitlines()[3:13]:  # header + top 10 ops by device time
         log(row)
-    return {a.key: (a.self_device_time_total / 1e3, a.device_time_total / 1e3)
-            for a in averages}
+    ops = {a.key: (a.self_device_time_total / 1e3, a.device_time_total / 1e3)
+           for a in averages}
+    return ops, device
 
 
 def conv_time(name: str, ops: dict) -> None:
     """The image tower's convolution device time in one profiled classify:
     cuDNN's in fast mode, K5's (and, apart, the int8 glue's) in turbo."""
-    def self_ms(pred):
-        return sum(t for k, (t, _) in ops.items() if pred(k))
-
     cudnn = sum(t for k, (_, t) in ops.items() if k == "aten::cudnn_convolution")
     # the int8 core's two instantiations: <false> requantizes (K5, the
     # tower), <true> dequantizes (the W8A8 text blocks' projections)
-    k5 = self_ms(lambda k: "int8_gemm_kernel<false>" in k)
-    text = self_ms(lambda k: "int8_gemm_kernel<true>" in k)
+    k5 = device_ms(ops, lambda k: "int8_gemm_kernel<false>" in k)
+    text = device_ms(ops, lambda k: "int8_gemm_kernel<true>" in k)
     log(f"--- {name}: convolution device time: cuDNN {cudnn:.3f} ms (its bias adds "
         f"{ops.get('aten::add_', (0, 0))[1]:.3f} ms, ReLUs "
         f"{ops.get('aten::clamp_min', (0, 0))[1]:.3f} ms apart); K5 "
@@ -187,15 +186,27 @@ def main() -> int:
         profiled(f"generate B={b}", lambda: engine.generate_report_ids(z_img, z_txt),
                  out_dir)
     for b, z in greedy_z.items():
-        profiled(f"greedy generate B={b}",
-                 lambda: engine.generate_report_ids(*z, greedy=True), out_dir)
+        ops, total = profiled(f"greedy generate B={b}",
+                              lambda: engine.generate_report_ids(*z, greedy=True), out_dir)
+        share(f"greedy generate B={b}", "beam_attn_kernel (row 5)",
+              device_ms(ops, lambda k: "beam_attn_kernel" in k), total)
     profiled("classify B=4", batches[4][0], out_dir)
     for mode in ("fast", "turbo"):
-        ops = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
+        ops, _ = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
         conv_time(f"{mode} classify gray B=32", ops)
     long_text_and_fused_routes(bundle, turbo, rng, out_dir, torch.device("cuda", 0))
     log(f"tables in {out_dir}")
     return 0
+
+
+def device_ms(ops: dict, pred) -> float:
+    """Self device time (ms) of the profiled ops whose name ``pred`` takes."""
+    return sum(t for k, (t, _) in ops.items() if pred(k))
+
+
+def share(route: str, kernel: str, ms: float, total: float) -> None:
+    log(f"--- {route}: {kernel} device time {ms:.3f} ms of {total:.3f} ms "
+        f"({ms / max(total, 1e-9):.3f})")
 
 
 def in_turns(label: str, a: tuple, b: tuple) -> None:
@@ -236,9 +247,10 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
         cls = sorted(synced_ms(fn)[1] for _ in range(3))
         log(f"long text L=512 B={b}: fast classify ms {cls}")
         if b == 32:
-            ops = profiled("fast classify long text L=512 B=32", fn, out_dir)
-            flash = sum(t for k, (t, _) in ops.items() if "flash_attn_kernel" in k)
-            log(f"--- flash_attn_kernel device time {flash:.3f} ms over 12 layers")
+            ops, total = profiled("fast classify long text L=512 B=32", fn, out_dir)
+            # both bodies: flash_attn_tc_kernel (bf16) and flash_attn_kernel
+            share("fast classify long text L=512 B=32", "flash_attn kernels (row 9)",
+                  device_ms(ops, lambda k: "flash_attn" in k), total)
     del fast
 
     images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(32)]
@@ -253,9 +265,9 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
              ("unfused", lambda: turbo.classify_batch(images, texts, pad_to=32)),
              ("MMDX_INT8_FUSED_BLOCKS=1,2",
               lambda: fused.classify_batch(images, texts, pad_to=32)))
-    ops = profiled("turbo classify RGB B=32 fused blocks",
-                   lambda: fused.classify_batch(images, texts, pad_to=32), out_dir)
-    k13 = sum(t for k, (t, _) in ops.items() if "int8_bottleneck_kernel" in k)
+    ops, _ = profiled("turbo classify RGB B=32 fused blocks",
+                      lambda: fused.classify_batch(images, texts, pad_to=32), out_dir)
+    k13 = device_ms(ops, lambda k: "int8_bottleneck_kernel" in k)
     log(f"--- int8_bottleneck_kernel device time {k13:.3f} ms (5 blocks)")
     del fused
 
@@ -271,9 +283,9 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
         in_turns("bf16 image tower B=32 at 224",
                  ("cuDNN", lambda: encoders[1].encode(x)),
                  ("use_fused_bottleneck", lambda: encoders[0].encode(x)))
-        ops = profiled("fused bf16 image tower B=32", lambda: encoders[0].encode(x), out_dir)
-    k12 = sum(t for k, (t, _) in ops.items() if "bottleneck_kernel" in k
-              and "int8" not in k)
+        ops, _ = profiled("fused bf16 image tower B=32", lambda: encoders[0].encode(x),
+                          out_dir)
+    k12 = device_ms(ops, lambda k: "bottleneck_kernel" in k and "int8" not in k)
     log(f"--- bottleneck_kernel device time {k12:.3f} ms (6 blocks)")
 
     batch = torch.from_numpy(rng.integers(0, 256, (32, 512, 512, 3), dtype=np.uint8)).to(dev)

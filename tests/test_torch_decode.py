@@ -6,7 +6,9 @@ tensors; the Pallas functions run in interpret mode):
   ``beam_decode_attention_int8`` (row 7) against the Pallas reads at nb = 1
   and nb = 4, f32 to 1e-5 and bf16 to 3e-2 (tests/test_pallas_beam_attn.py:45),
   the int8 read on the same quantized cache; the int8 cache's
-  quantize-on-write bit-equal to ``models/t5.py:244-259``;
+  quantize-on-write bit-equal to ``models/t5.py:244-259``; the cluster
+  kernel's split over keys and merge of the softmax statistics, emulated,
+  against the same Pallas reads;
 * ``ops/lm_head.lm_head_greedy`` (row 10) and ``lm_head_stats`` (row 11)
   against the Pallas kernels, with the bars of tests/test_lm_head.py, ties
   and a fully masked chunk; the lazy candidate top-k against the dense one;
@@ -16,6 +18,8 @@ tensors; the Pallas functions run in interpret mode):
 Inputs are made from seeds with numpy and handed to both sides.
 """
 import dataclasses
+import faulthandler
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -120,6 +124,103 @@ def test_beam_attn_int8_plain_matches_pallas(nb, dtype):
     assert got.dtype == tq.dtype and got.shape == (4, nb, hd)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.fixture
+def time_guard():
+    """An alarm raises in a test still running Python code at 120 s; a
+    watchdog ends the process at 180 s if its main thread is blocked in
+    native code, where the alarm cannot run."""
+    def expire(signum, frame):
+        raise TimeoutError("test exceeded its 120 s guard")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(120)
+    faulthandler.dump_traceback_later(180, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+    signal.alarm(0)
+    signal.signal(signal.SIGALRM, previous)
+
+
+def _cluster_read(q, kv, mask, bias, ranks: int, kvs=None):
+    """The cluster kernel's arithmetic (csrc/beam_attn.cu beam_attn_kernel)
+    in torch f32, for ``ranks`` blocks each owning ceil(K / ranks)
+    contiguous keys (none for some when K < ranks): f32 scores (times the K
+    scales), each rank's max (-3e38 when empty) merged into the max m, each
+    rank's sum of exp(s - m) added in rank order, p = e / sum (times the V
+    scales) rounded to q.dtype, each rank's f32 partial p . v added in rank
+    order, ctx in q.dtype."""
+    b, nb, hd = q.shape
+    kk, h = kv.shape[1], bias.shape[0]
+    d = hd // h
+    kh = kv[..., :hd].reshape(b, kk, h, d).float()
+    vh = kv[..., hd:].reshape(b, kk, h, d).float()
+    s = torch.einsum("bihd,bkhd->bhik", q.reshape(b, nb, h, d).float(), kh)
+    if kvs is not None:
+        s = s * kvs[:, :h, None, :]
+    s = s + bias[None, :, None, :] + mask[:, None, :, :]
+    chunk = -(-kk // ranks)
+    spans = [(min(kk, r * chunk), min(kk, (r + 1) * chunk)) for r in range(ranks)]
+    m = torch.full(s.shape[:-1], -3e38)
+    for lo, hi in spans:
+        if hi > lo:
+            m = torch.maximum(m, s[..., lo:hi].amax(-1))
+    e = torch.exp(s - m[..., None])
+    total = torch.zeros(s.shape[:-1])
+    for lo, hi in spans:
+        total = total + e[..., lo:hi].sum(-1)
+    p = e / total[..., None]
+    if kvs is not None:
+        p = p * kvs[:, h:, None, :]
+    p = p.to(q.dtype).float()
+    ctx = torch.zeros(b, h, nb, d)
+    for lo, hi in spans:
+        ctx = ctx + torch.einsum("bhik,bkhd->bhid", p[..., lo:hi], vh[:, lo:hi])
+    return ctx.permute(0, 2, 1, 3).reshape(b, nb, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("nb", [1, 4])
+@pytest.mark.parametrize("kk", [5, 181, 724])
+def test_cluster_read_arithmetic_matches_pallas(kk, nb, cache, dtype, time_guard):
+    """The cluster kernel's 3-phase merge, emulated for clusters of 1, 3 and
+    8 blocks (K = 5 < 8 leaves ranks empty; 181 and 724 are not multiples
+    of 3 or 8), against the Pallas beam_decode_attention and
+    beam_decode_attention_int8 in interpret mode, at the bars of
+    test_beam_attn_plain_matches_pallas and
+    test_beam_attn_int8_plain_matches_pallas. The first sample's mask kills
+    every column (the all-masked first step), where m must stay finite."""
+    from mmdx_tpu.ops.pallas_beam_attn import (beam_decode_attention,
+                                               beam_decode_attention_int8)
+
+    b, h, d = 2, 2, 64
+    hd = h * d
+    rng = np.random.default_rng(kk + nb)
+    q = rng.standard_normal((b, nb, hd)).astype(np.float32)
+    kv = rng.standard_normal((b, kk, 2 * hd)).astype(np.float32)
+    mask = np.where(rng.random((b, nb, kk)) < 0.7, 0.0, -1e9).astype(np.float32)
+    mask[0] = -1e9
+    bias = rng.standard_normal((h, kk)).astype(np.float32)
+    jq, tq = _to(q, DTYPES[dtype])
+    if cache == "int8":
+        rows, kvs = beam_attn.quantize_kv_rows(_t(kv[..., :hd]), _t(kv[..., hd:]), heads=h)
+        ref = beam_decode_attention_int8(jq, jnp.asarray(rows.numpy()), jnp.asarray(kvs.numpy()),
+                                         jnp.asarray(mask), jnp.asarray(bias), interpret=True)
+        tkv = rows
+    else:
+        jkv, tkv = _to(kv, DTYPES[dtype])
+        kvs = None
+        ref = beam_decode_attention(jq, jkv, jnp.asarray(mask), jnp.asarray(bias),
+                                    interpret=True)
+    ref = np.asarray(ref, np.float32)
+    for ranks in (1, 3, 8):
+        got = _cluster_read(tq, tkv, _t(mask), _t(bias), ranks, kvs)
+        assert got.dtype == tq.dtype and got.shape == (b, nb, hd)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=TOL[dtype],
+                                   atol=TOL[dtype], err_msg=f"{ranks} ranks")
 
 
 # ---------------------------------------------------------------------------

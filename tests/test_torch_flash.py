@@ -3,7 +3,9 @@
 * row 9 (``ops/flash_attention.py``): the plain version against the Pallas
   ``flash_attention`` in interpret mode, with ragged lengths (the wrapper's
   padded keys), a padding bias (one sequence fully masked, where the padding
-  shows), and a causal bias: 1e-5 in f32, 3e-2 in bf16;
+  shows), and a causal bias: 1e-5 in f32, 3e-2 in bf16; the tensor-core
+  body's arithmetic (exact bf16 products, p split into two bf16 halves)
+  emulated and held to 2e-5, and the rule that picks that body;
 * the BERT layer's routing by length (fused block, einsum, flash), and the
   text tower on the flash and einsum routes against the JAX ``TextEncoder``
   at narrow widths;
@@ -109,6 +111,88 @@ def test_flash_wrapper_takes_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         fa.flash_attention(*(_t(a).to("meta") for a in args), 0.125)
     assert fa.flash_attention.launches == before
+
+
+def _tensor_core_emulation(q, k, v, bias, scale, split=True, tile=64):
+    """The tensor-core body's arithmetic (csrc/flash_attn.cu
+    flash_attn_tc_kernel) in torch f32: q, k, v hold bf16 values, so q . k
+    sums exact products in f32, times the power-of-two scale (exact); the
+    online softmax over 64-key tiles in f32 from m = -1e9, with the
+    wrapper's padded keys at -1e9 and keys past the padded length excluded;
+    p . v with p split into bf16 hi + lo (``split``) or rounded once to bf16;
+    acc / l in f32."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    lk_pad = fa.padded_key_len(lk)
+    bias = torch.broadcast_to(bias, (b, h, lq, lk))
+    acc = torch.zeros(b, h, lq, d)
+    m = torch.full((b, h, lq, 1), -1e9)
+    l = torch.zeros(b, h, lq, 1)
+    bf = torch.bfloat16
+    for k0 in range(0, lk_pad, tile):
+        kt = torch.zeros(b, h, tile, d)
+        vt = torch.zeros(b, h, tile, d)
+        n = max(0, min(lk, k0 + tile) - k0)
+        kt[:, :, :n], vt[:, :, :n] = k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
+        s = (q @ kt.transpose(-1, -2)) * scale
+        s[..., :n] += bias[..., k0:k0 + n]
+        cols = torch.arange(k0, k0 + tile)
+        s[..., cols >= lk] = -1e9
+        s[..., cols >= lk_pad] = float("-inf")
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        hi = p.to(bf).float()
+        acc = acc * corr + hi @ vt
+        if split:
+            acc = acc + (p - hi).to(bf).float() @ vt
+        else:
+            acc = acc + (p.to(bf).float() - hi) @ vt  # zero: hi is p rounded once
+    return acc / l
+
+
+@pytest.mark.parametrize("seq", [64, 200, 344])
+def test_tensor_core_arithmetic_matches_pallas(seq):
+    """The tensor-core body's emulated arithmetic against the Pallas
+    flash_attention (interpret mode, f32 inputs holding the same bf16
+    values) at BERT's head width and scale 1/8: ragged key lengths (200, 344:
+    the wrapper's padded keys) and one sequence with every key masked. Split
+    p within 2e-5; p rounded once to bf16 at least 10x further off, which
+    is why the kernel splits it."""
+    from mmdx_tpu.ops.pallas_attention import flash_attention
+
+    rng = np.random.default_rng(seq)
+    d = fa.HEAD_DIM
+    q, k, v, bias = _flash_inputs(rng, 2, 2, seq, seq, d, "padding")
+    q, k, v = (_t(a).to(torch.bfloat16).float() for a in (q, k, v))
+    scale = 1.0 / np.sqrt(d)
+    assert fa.tensor_core_body(torch.bfloat16, scale)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax.jit(lambda *a: flash_attention(*a, scale=scale))(
+            *(jnp.asarray(t.numpy()) for t in (q, k, v)), jnp.asarray(bias)))
+    split = _tensor_core_emulation(q, k, v, _t(bias), scale).numpy()
+    once = _tensor_core_emulation(q, k, v, _t(bias), scale, split=False).numpy()
+    err_split, err_once = np.abs(split - ref).max(), np.abs(once - ref).max()
+    assert err_split <= 2e-5, err_split
+    assert err_once >= 10 * err_split, (err_once, err_split)
+
+
+@pytest.mark.parametrize("dtype,scale,tensor_cores", [
+    (torch.bfloat16, 0.125, True),        # BERT-base: 1/sqrt(64)
+    (torch.bfloat16, 1.0, True),          # T5: no scale
+    (torch.bfloat16, 2.0 ** -20, True),
+    (torch.bfloat16, 48 ** -0.5, False),  # a head width of 48
+    (torch.bfloat16, -0.125, False),
+    (torch.bfloat16, 0.0, False),
+    (torch.float32, 0.125, False),        # the parity engine's f32 operands
+    (torch.float16, 0.125, False),
+])
+def test_tensor_core_body_rule(dtype, scale, tensor_cores):
+    """The wrapper's rule: the tensor-core body only for bf16 operands with
+    a positive power-of-two scale."""
+    assert fa.tensor_core_body(dtype, scale) is tensor_cores
 
 
 # ---------------------------------------------------------------------------
