@@ -15,10 +15,12 @@ Phases (any failure exits nonzero):
      runs (CUDA events), the least time the card could take for the same
      work, and for the bf16 cache read and flash attention the time of the
      library call of the same function (scaled_dot_product_attention); for
-     rows 5, 7 and 9 (and the library call) also the device time per call
-     from a CUDA graph of 20 calls, which leaves out the wrapper's host time;
-     rows 5 and 7 also against their plain version's bits (BITS_SHARE,
-     BITS_ULP); row 9 fails unless each shape ran the body its rule names;
+     K3, K4 and rows 5, 7 and 9 (and the library call) also the device time
+     per call from a CUDA graph of 20 calls, which leaves out the wrapper's
+     host time; rows 5 and 7 also against their plain version's bits
+     (BITS_SHARE, BITS_ULP), K4 with the share of its bf16 outputs off the
+     plain version's bits and bit-equal over two launches (deterministic
+     split-K); row 9 fails unless each shape ran the body its rule names;
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
@@ -89,7 +91,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                   "mmdx_tpu/ops/pallas_ffn.py:191"),
     "beam_attn_partial": ("mmdx_tpu_torch/csrc/beam_attn.cu",
                           "mmdx_tpu/ops/pallas_beam_attn.py:220"),
-    "t5_cross_ffn": ("mmdx_tpu_torch/csrc/t5_cross_attn.cu",
+    "t5_cross_ffn": ("mmdx_tpu_torch/csrc/t5_cross_ffn.cu",
                      "mmdx_tpu/ops/pallas_t5_step.py:106"),
     "int8_gemm": ("mmdx_tpu_torch/csrc/int8_gemm.cu",
                   "mmdx_tpu/ops/pallas_int8_gemm.py:119"),
@@ -338,62 +340,87 @@ def phase_kernels(device) -> dict:
 
     out["int8_gemm"] = phase_int8_gemm(device, g)
 
-    # K3: beam self-attention partials, B=8, nb=4, Lmax=181 -> K=724, 8 heads
-    b, nb, lmax, heads, d = 8, 4, 181, 8, 64
-    kk, hd = nb * lmax, heads * d
-    q = randn(b, nb, hd, scale=0.5)
-    kv = randn(b, kk, 2 * hd, scale=0.5)
-    rel = torch.randn(heads, lmax, generator=g)
+    # K3: beam self-attention partials, 8 heads, Lmax=181 -> K=724: B=8 (the
+    # record) at three positions, pos 0 with every column masked; B=32 (the
+    # serving batch); and K=4 (Lmax 1), fewer keys than the cluster's ranks
+    heads, d = 8, 64
+    hd = heads * d
     worst = 0.0
-    for pos in (0, lmax // 2, lmax - 1):
-        t = torch.arange(lmax)
-        causal = torch.where(t <= pos, 0.0, -1e9)
-        bias = (rel + causal).repeat_interleave(nb, dim=1)
-        anc = torch.randint(0, nb, (b, nb, lmax), generator=g)
-        anc = torch.where(t[None, None, :] == pos, -1, anc)  # own column dead
-        live = anc[..., None] == torch.arange(nb)
-        mask = torch.where(live.reshape(b, nb, kk), 0.0, -1e9)
-        args = (q, kv, mask.to(device), bias.to(device))
-        log(f"K3 beam_decode_attention_partial: B={b}, nb={nb}, K={kk}, pos={pos}"
-            + (" (every column masked)" if pos == 0 else ""))
-        acc, mm, ll = beam_attn.beam_decode_attention_partial(*args)
-        acc_p, mm_p, ll_p = beam_attn.beam_decode_attention_partial_plain(*args)
-        ctx = acc.reshape(b, nb, heads, d) / ll[..., None]
-        ctx_p = acc_p.reshape(b, nb, heads, d) / ll_p[..., None]
-        tol = dict(atol=K3_ATOL, rtol=K3_RTOL)
-        worst = max(worst, compare(f"K3 pos={pos} acc", acc, acc_p, **tol),
-                    compare(f"K3 pos={pos} ctx=acc/l", ctx, ctx_p, **tol))
-        compare(f"K3 pos={pos} m", mm, mm_p, **tol)
-        compare(f"K3 pos={pos} l", ll, ll_p, **tol)
-    ms, pms = timed(f"K3 (pos={pos})",
-                    lambda: beam_attn.beam_decode_attention_partial(*args),
-                    lambda: beam_attn.beam_decode_attention_partial_plain(*args))
-    nbytes = 2 * (b * nb * hd + b * kk * 2 * hd) + 4 * (b * nb * kk + heads * kk) \
-        + 4 * (b * nb * hd + 2 * b * nb * heads)
-    out["beam_attn_partial"] = (worst, ms, pms) + bound(
-        nbytes, bf16_ops=2 * 2 * b * nb * kk * hd)
+    for b, nb, lmax, positions in ((8, 4, 181, (0, 90, 180)), (32, 4, 181, (180,)),
+                                   (4, 4, 1, (0,))):
+        kk = nb * lmax
+        q = randn(b, nb, hd, scale=0.5)
+        kv = randn(b, kk, 2 * hd, scale=0.5)
+        rel = torch.randn(heads, lmax, generator=g)
+        for pos in positions:
+            t = torch.arange(lmax)
+            causal = torch.where(t <= pos, 0.0, -1e9)
+            bias = (rel + causal).repeat_interleave(nb, dim=1)
+            anc = torch.randint(0, nb, (b, nb, lmax), generator=g)
+            anc = torch.where(t[None, None, :] == pos, -1, anc)  # own column dead
+            live = anc[..., None] == torch.arange(nb)
+            mask = torch.where(live.reshape(b, nb, kk), 0.0, -1e9)
+            args = (q, kv, mask.to(device), bias.to(device))
+            ranks = beam_attn.cluster_ranks(b * heads, kk, beam_attn.PARTIAL_FILL)
+            label = f"K3 B={b} K={kk} pos={pos}"
+            log(f"K3 beam_decode_attention_partial: B={b}, nb={nb}, K={kk}, pos={pos}, "
+                f"{ranks} ranks" + (" (every column masked)" if pos == 0 else ""))
+            acc, mm, ll = beam_attn.beam_decode_attention_partial(*args)
+            acc_p, mm_p, ll_p = beam_attn.beam_decode_attention_partial_plain(*args)
+            ctx = acc.reshape(b, nb, heads, d) / ll[..., None]
+            ctx_p = acc_p.reshape(b, nb, heads, d) / ll_p[..., None]
+            tol = dict(atol=K3_ATOL, rtol=K3_RTOL)
+            err = max(compare(f"{label} acc", acc, acc_p, **tol),
+                      compare(f"{label} ctx=acc/l", ctx, ctx_p, **tol))
+            compare(f"{label} m", mm, mm_p, **tol)
+            compare(f"{label} l", ll, ll_p, **tol)
+            if b == 8:
+                worst = max(worst, err)
+        ms, pms = timed(f"K3 B={b} K={kk}",
+                        lambda: beam_attn.beam_decode_attention_partial(*args),
+                        lambda: beam_attn.beam_decode_attention_partial_plain(*args))
+        gms = graph_ms(lambda: beam_attn.beam_decode_attention_partial(*args))
+        nbytes = 2 * (b * nb * hd + b * kk * 2 * hd) + 4 * (b * nb * kk + heads * kk) \
+            + 4 * (b * nb * hd + 2 * b * nb * heads)
+        rec = (worst, ms, pms) + bound(nbytes, bf16_ops=2 * 2 * b * nb * kk * hd)
+        log(f"  K3 B={b} K={kk} device time per call (CUDA graph of 20): {gms:.4f} ms; "
+            f"bound {rec[3]:.4f} ms ({rec[4]}); {nbytes / gms / 1e6:.1f} GB/s")
+        out.setdefault("beam_attn_partial", rec)
 
     # K4: cross-attention + FFN half-step at T5-small widths; N=32 rows (beam-4
-    # at B=8) is the recorded site, N=4 and N=64 are greedy's rows at B=4, 64
-    dm, kc, dff, heads = 512, 4, 2048, 8
-    for n in (32, 4, 64):
+    # at B=8) is the recorded site; N=16 and 128 are beam-4 at B=4 and 32,
+    # N=4 and 64 greedy's rows at B=4 and 64, N=20 a ragged row tile
+    dm, kc, dff = 512, 4, 2048
+    splits = t5_step.split_counts(
+        torch.cuda.get_device_properties(device).multi_processor_count, dm, dff)
+    for n in (32, 4, 16, 20, 64, 128):
         enc_bias = torch.zeros(n, kc)
         enc_bias[::3, -1] = -1e9
+        enc_bias[1] = -1e9  # a fully masked row
         t5_args = (randn(n, dm), 1.0 + randn(dm, scale=0.1, dtype=torch.float32),
                    randn(dm, dm, scale=dm ** -0.5), randn(dm, dm, scale=dm ** -0.5),
                    randn(n, kc, dm), randn(n, kc, dm), enc_bias.to(device),
                    1.0 + randn(dm, scale=0.1, dtype=torch.float32),
                    randn(dm, dff, scale=dm ** -0.5), randn(dff, dm, scale=dff ** -0.5))
-        log(f"K4 cross_ffn_block: hidden [{n}, {dm}] bf16, K={kc}, d_ff={dff}")
-        err = compare(f"K4 N={n}", t5_step.cross_ffn_block(*t5_args, heads=heads),
-                      t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
+        log(f"K4 cross_ffn_block: hidden [{n}, {dm}] bf16, K={kc}, d_ff={dff}, one row fully "
+            f"masked; K-splits (wq, wo_c, wi, wo_f) {splits}")
+        got = t5_step.cross_ffn_block(*t5_args, heads=heads)
+        ref = t5_step.cross_ffn_block_plain(*t5_args, heads=heads)
+        err = compare(f"K4 N={n}", got, ref)
+        n_diff = int((got != ref).sum())
+        log(f"  K4 N={n}: {n_diff} of {got.numel()} bf16 outputs ({n_diff / got.numel():.2%}) "
+            f"differ from the plain version's bits")
+        if not torch.equal(t5_step.cross_ffn_block(*t5_args, heads=heads), got):
+            fail(f"K4 N={n}: two launches on the same inputs differ (split-K is not deterministic)")
         ms, pms = timed(f"K4 N={n}", lambda: t5_step.cross_ffn_block(*t5_args, heads=heads),
                         lambda: t5_step.cross_ffn_block_plain(*t5_args, heads=heads))
+        gms = graph_ms(lambda: t5_step.cross_ffn_block(*t5_args, heads=heads))
         nbytes = 2 * (2 * n * dm + 2 * dm * dm + 2 * n * kc * dm + 2 * dm * dff) \
             + 4 * (2 * dm + n * kc)
         rec = (err, ms, pms) + bound(
             nbytes, bf16_ops=2 * n * (2 * dm * dm + 2 * dm * dff + 2 * kc * dm))
-        log(f"  K4 N={n} bound {rec[3]:.4f} ms ({rec[4]})")
+        log(f"  K4 N={n} device time per call (CUDA graph of 20): {gms:.4f} ms; "
+            f"bound {rec[3]:.4f} ms ({rec[4]})")
         out.setdefault("t5_cross_ffn", rec)
     out.update(phase_decode_kernels(device, g))
     out.update(phase_route_kernels(device, g))

@@ -28,22 +28,21 @@ SIGNATURES = {
     "mmdx_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # y, gamma, beta, out, M, H, eps, stream
     "mmdx_layernorm_f32_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
-    # x, scale, out, M, D, eps, stream
-    "mmdx_rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
     # qkv, kmask, ctx, B, L, H, heads, scale, stream
     "mmdx_bert_attn": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, kv, mask, bias, acc, m, l, B, nb, K, heads, head_dim, stream
-    "mmdx_beam_attn_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, kv, mask, bias, ctx, B, nb, K, heads, head_dim, stream
-    "mmdx_beam_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, kv, kvs, mask, bias, ctx, B, nb, K, heads, head_dim, stream
-    "mmdx_beam_attn_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, kv, mask, bias, acc, m, l, B, nb, K, heads, head_dim, ranks, stream
+    "mmdx_beam_attn_partial": [_P] * 7 + [_I] * 6 + [_P],
+    # q, kv, mask, bias, ctx, B, nb, K, heads, head_dim, ranks, stream
+    "mmdx_beam_attn": [_P] * 5 + [_I] * 6 + [_P],
+    # q, kv, kvs, mask, bias, ctx, B, nb, K, heads, head_dim, ranks, stream
+    "mmdx_beam_attn_int8": [_P] * 6 + [_I] * 6 + [_P],
     # hidden, emb, mask, cmax, carg, N, V, D, stream
     "mmdx_lm_head_greedy": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # hidden, emb, mask, logits, cmax, pmax, psum, m, L, N, V, D, stream
     "mmdx_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, ck, cv, enc_bias, ctx, N, KK, heads, d, stream
-    "mmdx_t5_cross_attn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # hidden, cross_ln, wq, wo_c, ck, cv, enc_bias, ffn_ln, wi, wo_f, y, ctx,
+    # x, hmid, out, ws, N, D, F, KK, heads, eps, blocks, sq, so, si, sf, stream
+    "mmdx_t5_cross_ffn": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # qkv, kmask, ctx (f32), B, L, H, heads, scale, stream
     "mmdx_bert_attn_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # A, B, alpha, bias, bias_rows, res, rs, A2, B2, alpha2, bias2, K2,
@@ -71,12 +70,9 @@ SIGNATURES = {
 }
 
 # GEMM epilogues (csrc/gemm.cu enum Epilogue)
-EPI_BF16 = 0
 EPI_BIAS_BF16 = 1
 EPI_BIAS_GELU_BF16 = 2
 EPI_BIAS_RESID_F32 = 3
-EPI_RELU_BF16 = 4
-EPI_RESID_BF16 = 5
 
 # int8 GEMM dequantizing epilogues (csrc/int8_gemm.cu mmdx_int8_gemm_dequant)
 DQ_BF16 = 0             # bf16(acc*sc + bias)

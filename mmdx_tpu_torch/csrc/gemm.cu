@@ -1,7 +1,11 @@
-// Tiled bf16 GEMM with fused epilogues, plus the row-normalisation kernels
-// the fused blocks end with. Shared by the four ported kernels
-// (ops/bert_attn.py, ops/fused_ffn.py, ops/t5_step.py); each of them is a
-// short sequence of launches of the entry points below.
+// Tiled bf16 GEMM with fused epilogues, plus the LayerNorm the fused BERT
+// blocks end with. Shared by the BERT kernels (ops/bert_attn.py,
+// ops/fused_ffn.py); each of them is a short sequence of launches of the
+// entry points below. The EPI_BF16, EPI_RELU_BF16 and EPI_RESID_BF16
+// epilogues have no caller since the T5 half step became one kernel
+// (csrc/t5_cross_ffn.cu); they stay because taking their cases out of the
+// switch changes the code emitted for the others and slowed K2 on an H100
+// (scripts/bench_decode_kernels.py, its K2 lines).
 //
 // GEMM: C[M, N] = A[M, K] @ B[K, N], A and B row-major bf16 (B is the flax
 // [in, out] kernel layout), f32 accumulation on the tensor cores through
@@ -152,27 +156,6 @@ __global__ void layernorm_f32_bf16_kernel(const float* __restrict__ y,
     orow[c] = f2bf((yr[c] - mean) * r * bf2f(gamma[c]) + bf2f(beta[c]));
 }
 
-// T5 RMSNorm (models/t5.RMSNorm): f32 mean of squares, the normalised value
-// rounded to bf16 BEFORE the f32 scale multiply, the product rounded again.
-__global__ void rmsnorm_bf16_kernel(const bf16* __restrict__ x,
-                                    const float* __restrict__ scale,
-                                    bf16* __restrict__ out, int M, int D,
-                                    float eps) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const bf16* xr = x + (size_t)row * D;
-  float s = 0.0f;
-  for (int c = lane; c < D; c += 32) {
-    const float v = bf2f(xr[c]);
-    s += v * v;
-  }
-  const float r = rsqrtf(warp_sum(s) / D + eps);
-  bf16* orow = out + (size_t)row * D;
-  for (int c = lane; c < D; c += 32)
-    orow[c] = f2bf(scale[c] * round_bf16(bf2f(xr[c]) * r));
-}
-
 }  // namespace
 
 MMDX_EXPORT int mmdx_gemm_bf16(const void* A, const void* B, const void* bias,
@@ -198,17 +181,5 @@ MMDX_EXPORT int mmdx_layernorm_f32_bf16(const void* y, const void* gamma,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const bf16*>(gamma),
       static_cast<const bf16*>(beta), static_cast<bf16*>(out), M, H, eps);
-  return launch_status();
-}
-
-MMDX_EXPORT int mmdx_rmsnorm_bf16(const void* x, const void* scale, void* out,
-                                  int M, int D, float eps, void* stream) {
-  if (M <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = 4;
-  rmsnorm_bf16_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                        32 * rows_per_block, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<bf16*>(out), M, D, eps);
   return launch_status();
 }

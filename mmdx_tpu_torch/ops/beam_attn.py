@@ -24,9 +24,11 @@ Kernels (CUDA C++, ``csrc/beam_attn.cu``), one launch each. What bounds
 them on the H100: bytes. Every decode step reads the whole cache once per
 layer (at B=8, K=724: 8 x 724 x 2 KB = 11.9 MB) for only nb = 4 query
 rows, so the products run in f32 on the CUDA cores, each k and v row
-read once. The partials run one block per (sample, head); the normalised
-reads a cluster of 8 blocks per (sample, head), each block an eighth of the
-keys, copied to shared memory 16 bytes at a time.
+read once. All three run one cluster body: a thread-block cluster per
+(sample, head) whose blocks (ranks) each take a contiguous share of the
+keys, copied to shared memory 16 bytes at a time, and merge the softmax
+statistics and partial products through distributed shared memory. The
+rank count follows the grid (:func:`cluster_ranks`).
 
 Masks are additive -1e9, never -inf (models/t5.NEG_INF): at pos = 0 every
 cache column is masked, m is about -1e9, and the composition's
@@ -41,6 +43,27 @@ from mmdx_tpu_torch import _build
 F32 = torch.float32
 HEAD_DIM = 64
 MAX_BEAMS = 8
+# cluster_ranks: a read's grid grows to at least ``fill`` blocks before it
+# stops splitting the keys (FILL_BLOCKS for the normalised reads,
+# PARTIAL_FILL for the partials, whose scoring takes a key a thread), and no
+# block takes more than MAX_CHUNK keys: the fastest rank counts of
+# scripts/bench_decode_kernels.py --ranks on an H100 at beam B=4, 8, 32 and
+# greedy B=4, 64
+FILL_BLOCKS = 256
+PARTIAL_FILL = 512
+MAX_CHUNK = 256
+
+
+def cluster_ranks(pairs: int, keys: int, fill: int = FILL_BLOCKS) -> int:
+    """Blocks per cluster (1, 2, 4 or 8) for a read of ``pairs`` (sample,
+    head) pairs over ``keys`` keys: the fewest that give the grid ``fill``
+    blocks and each block at most ``MAX_CHUNK`` keys, so a small grid
+    splits the keys over the card and a large one (greedy at B=64: 512
+    pairs) keeps whole (sample, head)s in one block."""
+    ranks = 1
+    while ranks < 8 and (pairs * ranks < fill or -(-keys // ranks) > MAX_CHUNK):
+        ranks *= 2
+    return ranks
 
 
 def beam_decode_attention_partial_plain(q, kv, mask, bias):
@@ -66,27 +89,25 @@ def beam_decode_attention_partial(q, kv, mask, bias):
     """q [B, nb, h*d]; kv [B, K, 2*h*d]; mask [B, nb, K] f32; bias [h, K] f32
     -> (acc [B, nb, h*d] f32, m [B, nb, h] f32, l [B, nb, h] f32).
 
+    Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``beam_partial_kernel``), one
+    launch: the normalised read's cluster body without the division by the
+    sum, e = exp(s - m) with the cluster's global max rounded to bf16 before
+    the product with v (the Pallas body's rounding point), acc in f32 and m,
+    l per (row, head), on clusters of :func:`cluster_ranks` blocks.
+
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, d = 64, nb <= 8) or raise."""
     if q.device.type == "cpu":
         return beam_decode_attention_partial_plain(q, kv, mask, bias)
-    b, nb, hd = q.shape
-    kk = kv.shape[1]
-    h = bias.shape[0]
-    if hd != h * HEAD_DIM or not 0 < nb <= MAX_BEAMS:
-        raise ValueError(f"beam_decode_attention_partial: needs head_dim "
-                         f"{HEAD_DIM} and nb <= {MAX_BEAMS}, got hd={hd}, h={h}, nb={nb}")
-    _build.require(q, "q", torch.bfloat16, (b, nb, hd))
-    _build.require(kv, "kv", torch.bfloat16, (b, kk, 2 * hd))
-    _build.require(mask, "mask", F32, (b, nb, kk))
-    _build.require(bias, "bias", F32, (h, kk))
-    acc = torch.empty((b, nb, hd), dtype=F32, device=q.device)
+    b, nb, kk, h = _check_read(q, kv, mask, bias, torch.bfloat16)
+    acc = torch.empty((b, nb, h * HEAD_DIM), dtype=F32, device=q.device)
     m = torch.empty((b, nb, h), dtype=F32, device=q.device)
     l = torch.empty((b, nb, h), dtype=F32, device=q.device)
     _build.check(_build.lib().mmdx_beam_attn_partial(
         q.data_ptr(), kv.data_ptr(), mask.data_ptr(), bias.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, nb, kk, h, HEAD_DIM,
-        _build.stream(q)), "beam_attn_partial")
+        cluster_ranks(b * h, kk, PARTIAL_FILL), _build.stream(q)),
+        "beam_attn_partial")
     beam_decode_attention_partial.launches += 1
     return acc, m, l
 
@@ -174,12 +195,13 @@ def beam_decode_attention(q, kv, mask, bias):
     flat greedy read).
 
     Kernel (CUDA C++, ``csrc/beam_attn.cu`` ``mmdx_beam_attn``), one launch:
-    a thread-block cluster of 8 blocks per (sample, head), each block a
-    contiguous eighth of the keys, the softmax max and sum and the partial
-    products merged through distributed shared memory (``sm_90``'s
-    clusters), ctx rounded to bf16. Bounded by bytes: the whole cache once
-    per layer per step (B=8, nb=4, K=724: 11.9 MB; greedy B=4, K=181: 1.5
-    MB), each k and v row copied once, 16 bytes at a time.
+    a thread-block cluster of 1-8 blocks per (sample, head)
+    (:func:`cluster_ranks`), each block a contiguous share of
+    the keys, the softmax max and sum and the partial products merged
+    through distributed shared memory (``sm_90``'s clusters), ctx rounded
+    to bf16. Bounded by bytes: the whole cache once per layer per step
+    (B=8, nb=4, K=724: 11.9 MB; greedy B=4, K=181: 1.5 MB), each k and v
+    row copied once, 16 bytes at a time.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, d = 64, nb <= 8) or raise."""
@@ -189,7 +211,8 @@ def beam_decode_attention(q, kv, mask, bias):
     ctx = torch.empty_like(q)
     _build.check(_build.lib().mmdx_beam_attn(
         q.data_ptr(), kv.data_ptr(), mask.data_ptr(), bias.data_ptr(), ctx.data_ptr(),
-        b, nb, kk, h, HEAD_DIM, _build.stream(q)), "beam_attn")
+        b, nb, kk, h, HEAD_DIM, cluster_ranks(b * h, kk), _build.stream(q)),
+        "beam_attn")
     beam_decode_attention.launches += 1
     return ctx
 
@@ -217,7 +240,8 @@ def beam_decode_attention_int8(q, kv, kvs, mask, bias):
     ctx = torch.empty_like(q)
     _build.check(_build.lib().mmdx_beam_attn_int8(
         q.data_ptr(), kv.data_ptr(), kvs.data_ptr(), mask.data_ptr(), bias.data_ptr(),
-        ctx.data_ptr(), b, nb, kk, h, HEAD_DIM, _build.stream(q)), "beam_attn_int8")
+        ctx.data_ptr(), b, nb, kk, h, HEAD_DIM, cluster_ranks(b * h, kk),
+        _build.stream(q)), "beam_attn_int8")
     beam_decode_attention_int8.launches += 1
     return ctx
 

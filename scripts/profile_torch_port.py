@@ -28,9 +28,11 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      host's self CPU total and op count, the top ops by device time, and for
      the gray classifies the device time of the image tower's convolutions:
      cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
-     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode, and for
-     the greedy generates row 5's (``beam_attn_kernel``) share. The full
-     tables go to the git-ignored output directory (``out_dir`` below);
+     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode; for
+     every generate K4's share and kernels per step (``decode_shares``),
+     with K3's share (beam) or row 5's (greedy); the script fails if one
+     of those shares reads 0. The full tables go to the git-ignored output
+     directory (``out_dir`` below);
   5. the routes of Queue 2 rows 9, 12, 13 and 17, each pair in turns (A, B,
      B, A) three times after a warm-up: long-text fast classify at L=512
      (``max_len`` 512, flash attention in every layer) at B=4 and B=32, the
@@ -94,7 +96,7 @@ def profiled(name: str, fn, out_dir: Path) -> tuple[dict, float]:
     (out_dir / f"{name.replace(' ', '_').replace('=', '')}.txt").write_text(table)
     for row in table.splitlines()[3:13]:  # header + top 10 ops by device time
         log(row)
-    ops = {a.key: (a.self_device_time_total / 1e3, a.device_time_total / 1e3)
+    ops = {a.key: (a.self_device_time_total / 1e3, a.device_time_total / 1e3, a.count)
            for a in averages}
     return ops, device
 
@@ -102,18 +104,18 @@ def profiled(name: str, fn, out_dir: Path) -> tuple[dict, float]:
 def conv_time(name: str, ops: dict) -> None:
     """The image tower's convolution device time in one profiled classify:
     cuDNN's in fast mode, K5's (and, apart, the int8 glue's) in turbo."""
-    cudnn = sum(t for k, (_, t) in ops.items() if k == "aten::cudnn_convolution")
+    cudnn = sum(t for k, (_, t, _) in ops.items() if k == "aten::cudnn_convolution")
     # the int8 core's two instantiations: <false> requantizes (K5, the
     # tower), <true> dequantizes (the W8A8 text blocks' projections)
     k5 = device_ms(ops, lambda k: "int8_gemm_kernel<false>" in k)
     text = device_ms(ops, lambda k: "int8_gemm_kernel<true>" in k)
     log(f"--- {name}: convolution device time: cuDNN {cudnn:.3f} ms (its bias adds "
-        f"{ops.get('aten::add_', (0, 0))[1]:.3f} ms, ReLUs "
-        f"{ops.get('aten::clamp_min', (0, 0))[1]:.3f} ms apart); K5 "
+        f"{ops.get('aten::add_', (0, 0, 0))[1]:.3f} ms, ReLUs "
+        f"{ops.get('aten::clamp_min', (0, 0, 0))[1]:.3f} ms apart); K5 "
         f"int8_gemm_kernel<false> {k5:.3f} ms; the text blocks' "
         f"int8_gemm_kernel<true> {text:.3f} ms; im2col stacks (aten::cat) "
-        f"{ops.get('aten::cat', (0, 0))[1]:.3f} ms, max-pool (aten::maximum) "
-        f"{ops.get('aten::maximum', (0, 0))[1]:.3f} ms")
+        f"{ops.get('aten::cat', (0, 0, 0))[1]:.3f} ms, max-pool (aten::maximum) "
+        f"{ops.get('aten::maximum', (0, 0, 0))[1]:.3f} ms")
 
 
 def main() -> int:
@@ -183,13 +185,13 @@ def main() -> int:
 
     for b in (4, 32):
         _, z_img, z_txt = batches[b]
-        profiled(f"generate B={b}", lambda: engine.generate_report_ids(z_img, z_txt),
-                 out_dir)
+        ops, total = profiled(f"generate B={b}",
+                              lambda: engine.generate_report_ids(z_img, z_txt), out_dir)
+        decode_shares(f"generate B={b}", ops, total, beam=True)
     for b, z in greedy_z.items():
         ops, total = profiled(f"greedy generate B={b}",
                               lambda: engine.generate_report_ids(*z, greedy=True), out_dir)
-        share(f"greedy generate B={b}", "beam_attn_kernel (row 5)",
-              device_ms(ops, lambda k: "beam_attn_kernel" in k), total)
+        decode_shares(f"greedy generate B={b}", ops, total, beam=False)
     profiled("classify B=4", batches[4][0], out_dir)
     for mode in ("fast", "turbo"):
         ops, _ = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
@@ -201,7 +203,37 @@ def main() -> int:
 
 def device_ms(ops: dict, pred) -> float:
     """Self device time (ms) of the profiled ops whose name ``pred`` takes."""
-    return sum(t for k, (t, _) in ops.items() if pred(k))
+    return sum(t for k, (t, _, _) in ops.items() if pred(k))
+
+
+# K4's kernels by name: one launch a layer (t5_cross_ffn_kernel), or, in
+# older checkouts, two RMSNorms, the attention core and four launches of the
+# shared bf16 GEMM, which decode runs for K4 alone
+K4_NAMES = ("t5_cross_ffn_kernel", "t5_cross_attn_kernel", "rmsnorm_bf16_kernel",
+            "gemm_bf16_kernel")
+# K3's in older and current checkouts (beam_attn_partial_kernel,
+# beam_partial_kernel)
+K3_NAME = "partial_kernel"
+
+
+def decode_shares(route: str, ops: dict, total: float, beam: bool, steps: int = 180) -> None:
+    """Log K4's (and with ``beam`` K3's, else row 5's) share of a profiled
+    generate and K4's kernels per decode step; exit if a share reads 0 (a
+    kernel renamed out of the match)."""
+    k4 = {k: v for k, v in ops.items() if any(n in k for n in K4_NAMES)}
+    per_step = sum(n for _, _, n in k4.values()) / steps
+    share(route, f"K4 ({', '.join(sorted(n for n in K4_NAMES if any(n in k for k in k4)))})",
+          device_ms(k4, lambda k: True), total)
+    log(f"--- {route}: K4 kernels per decode step {per_step:.1f} (over {steps} steps)")
+    kernels = {"K3 (partial_kernel)": lambda k: K3_NAME in k} if beam else \
+        {"row 5 (beam_attn_kernel)": lambda k: "beam_attn_kernel" in k}
+    shares = {"K4": device_ms(k4, lambda k: True)}
+    for name, pred in kernels.items():
+        shares[name] = device_ms(ops, pred)
+        share(route, name, shares[name], total)
+    if not all(ms > 0 for ms in shares.values()):
+        log(f"FAIL: {route}: a kernel share reads 0 ms: {shares}")
+        sys.exit(1)
 
 
 def share(route: str, kernel: str, ms: float, total: float) -> None:
