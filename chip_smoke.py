@@ -21,6 +21,11 @@ Phases (any failure exits nonzero):
      (BITS_SHARE, BITS_ULP), K4 with the share of its bf16 outputs off the
      plain version's bits and bit-equal over two launches (deterministic
      split-K); row 9 fails unless each shape ran the body its rule names;
+     K1 and K2 at the main path's rows (TEXT_SHAPES: one request, a ragged
+     M = 144, B=4, B=32, L=128, long text's M = 16384) with the share of
+     their bf16 outputs off the plain bits (TEXT_BITS_SHARE), their device
+     time, the attention core alone, and each GEMM launch beside
+     torch.addmm, the GEMM's yardstick;
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
@@ -74,6 +79,15 @@ K3_ATOL, K3_RTOL = 1e-4, 1e-3
 # an output, by an ulp or two; a wrong merge of the cluster's partials or
 # statistics moves many outputs by many ulps
 BITS_SHARE, BITS_ULP = 1e-3, 2
+# K1 and K2 beside ATOL: the kernels' f32 sums run in another order than
+# the plain version's (tile order, split-K), so an output near a bf16
+# rounding tie lands one ulp off; in K1 a flipped qkv or context value also
+# moves its row through the softmax and the out-projection. 0.4-3.1% of
+# outputs came off the plain bits on an H100 at every shape (K1 up to 3.1%,
+# K2 up to 1.0%); a dropped K step, split or key tile moves most of them.
+# The size of a difference is ATOL's to bound: a LayerNorm output near 0
+# is many ulps from its neighbour at the same absolute error.
+TEXT_BITS_SHARE, TEXT_BITS_ULP = 0.05, None
 # rows 10 and 11: f32 logits of bf16 products summed over D = 512 on the
 # tensor cores and in the plain f32 product: summation order only
 DEC_TOL = 1e-4
@@ -192,10 +206,11 @@ def compare(name: str, got, ref, atol: float = ATOL, rtol: float = RTOL) -> floa
 
 
 def compare_bits(name: str, got, ref, share: float = BITS_SHARE,
-                 max_ulp: int = BITS_ULP) -> None:
+                 max_ulp: int | None = BITS_ULP) -> None:
     """Fail unless at most ``share`` of the bf16 outputs differ from the
     plain version's bits (at least one may), each by at most ``max_ulp``
-    units in the last place (+0 and -0 are one value)."""
+    units in the last place (+0 and -0 are one value; None: no ulp limit,
+    where ATOL/RTOL bound the size of a difference)."""
     import torch
 
     def ordered(t):  # bf16 bit patterns on one integer line, in value order
@@ -204,12 +219,13 @@ def compare_bits(name: str, got, ref, share: float = BITS_SHARE,
 
     ulps = (ordered(got) - ordered(ref)).abs()
     n_diff, worst = int((ulps != 0).sum()), int(ulps.max())
-    ok = n_diff <= max(1, int(share * got.numel())) and worst <= max_ulp
-    log(f"  {name}: {n_diff} of {got.numel()} bf16 outputs differ from the plain version's "
-        f"bits, by at most {worst} ulp (limit {share:.1%} of them, {max_ulp} ulp) -> "
+    ok = n_diff <= max(1, int(share * got.numel())) and (max_ulp is None or worst <= max_ulp)
+    limit = f"{share:.1%} of them" + ("" if max_ulp is None else f", {max_ulp} ulp")
+    log(f"  {name}: {n_diff} of {got.numel()} bf16 outputs ({n_diff / got.numel():.3%}) differ "
+        f"from the plain version's bits, by at most {worst} ulp (limit {limit}) -> "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail(f"{name}: kernel is not within {max_ulp} ulp of its plain version's bits")
+        fail(f"{name}: more of the kernel's outputs than {limit} off the plain version's bits")
 
 
 def compare_exact(name: str, got, ref) -> float:
@@ -283,38 +299,15 @@ def phase_kernels(device) -> dict:
 
     out = {}
 
-    # K1 / K2: BERT-base layer at B=32, L=96
+    # K1 / K2 at the main path's rows; K6 / K7 below on K1's and K2's
+    # inputs at B=32, L=96
+    text, (x, kmask, wqkv, bqkv, wo, bo, lns, lnb, wi, bi, wf, bf_) = \
+        phase_text_kernels(device, g)
+    out.update(text)
     b, l, h, heads, f = 32, 96, 768, 12, 3072
     m = b * l
-    x = randn(m, h)
-    lens = torch.randint(8, l + 1, (b,), generator=g)
-    kmask = torch.where(torch.arange(l)[None, :] < lens[:, None], 0.0, -1e9)
-    kmask = kmask.reshape(m).to(device=device, dtype=torch.float32)
-    wqkv, bqkv = randn(h, 3 * h, scale=h ** -0.5), randn(3 * h, scale=0.02)
-    wo, bo = randn(h, h, scale=h ** -0.5), randn(h, scale=0.02)
-    lns, lnb = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
-    attn_args = (x, kmask, wqkv, bqkv, wo, bo, lns, lnb)
     kw = dict(seq_len=l, num_heads=heads, eps=1e-12)
     attn_ops = 2 * 2 * b * heads * l * l * (h // heads)  # scores + context
-    log(f"K1 fused_attention_block: x [{m}, {h}] bf16 (B={b}, L={l}), {heads} heads")
-    err = compare("K1", bert_attn.fused_attention_block(*attn_args, **kw),
-                  bert_attn.fused_attention_block_plain(*attn_args, **kw))
-    ms, pms = timed("K1", lambda: bert_attn.fused_attention_block(*attn_args, **kw),
-                    lambda: bert_attn.fused_attention_block_plain(*attn_args, **kw))
-    nbytes = 2 * (2 * m * h + 4 * h * h + 3 * h + 3 * h) + 4 * m
-    out["bert_attn"] = (err, ms, pms) + bound(
-        nbytes, bf16_ops=2 * m * h * 4 * h + attn_ops)
-
-    wi, bi = randn(h, f, scale=h ** -0.5), randn(f, scale=0.02)
-    wf, bf_ = randn(f, h, scale=f ** -0.5), randn(h, scale=0.02)
-    ffn_args = (x, wi, bi, wf, bf_, lns, lnb)
-    log(f"K2 fused_ffn_ln: x [{m}, {h}] x [{h}, {f}] x [{f}, {h}] bf16")
-    err = compare("K2", fused_ffn.fused_ffn_ln(*ffn_args, eps=1e-12),
-                  fused_ffn.fused_ffn_ln_plain(*ffn_args, eps=1e-12))
-    ms, pms = timed("K2", lambda: fused_ffn.fused_ffn_ln(*ffn_args, eps=1e-12),
-                    lambda: fused_ffn.fused_ffn_ln_plain(*ffn_args, eps=1e-12))
-    nbytes = 2 * (2 * m * h + 2 * h * f + f + 3 * h)
-    out["fused_ffn"] = (err, ms, pms) + bound(nbytes, bf16_ops=2 * 2 * m * h * f)
 
     # K6 / K7: the W8A8 forms at the same shapes, weights quantized once
     wqkv_q, wo_q = fused_ffn.quant_weight_cols(wqkv), fused_ffn.quant_weight_cols(wo)
@@ -426,6 +419,106 @@ def phase_kernels(device) -> dict:
     out.update(phase_route_kernels(device, g))
     torch.cuda.synchronize()
     return out
+
+
+# K1 and K2 at the main path's rows: one request (B=1 L=32), a ragged row
+# count (B=3 L=48, M=144), B=4 and B=32 at L=96, K1 at its longest L=128
+# (B=4), K2 at long text's rows (M=16384, B=32 L=512); the record is B=32
+# L=96, the classify batch of the kernel table
+TEXT_SHAPES = ((1, 32, True), (3, 48, True), (4, 96, True), (4, 128, False),
+               (32, 512, False), (32, 96, True))
+
+
+def phase_text_kernels(device, g):
+    """K1 and K2 against their plain versions at TEXT_SHAPES (K1 where L
+    <= 128, K2 where the flag is set or L = 512): ATOL/RTOL and the share
+    of bf16 outputs off the plain version's bits (TEXT_BITS_SHARE,
+    TEXT_BITS_ULP); the time per call (CUDA events) and the device time per
+    call (CUDA graph of 20) of each, the plain version's time, the bound;
+    beside them the device time of the attention core alone (against its
+    plain context) and of each of the four GEMM launches with
+    ``torch.addmm(bias, a, b)`` on the same operands, the GEMM's yardstick.
+    -> ({"bert_attn": record, "fused_ffn": record} at the last shape, the
+    inputs at that shape for K6 / K7)."""
+    import torch
+
+    from mmdx_tpu_torch import _build
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn, gemm
+
+    bf = torch.bfloat16
+    h, heads, f = 768, 12, 3072
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device=device, dtype=bf)
+
+    wqkv, bqkv = randn(h, 3 * h, scale=h ** -0.5), randn(3 * h, scale=0.02)
+    wo, bo = randn(h, h, scale=h ** -0.5), randn(h, scale=0.02)
+    lns, lnb = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
+    wi, bi = randn(h, f, scale=h ** -0.5), randn(f, scale=0.02)
+    wf, bf_ = randn(f, h, scale=f ** -0.5), randn(h, scale=0.02)
+    out = {}
+    for b, l, ffn_too in TEXT_SHAPES:
+        m = b * l
+        x = randn(m, h)
+        lens = torch.randint(min(8, l), l + 1, (b,), generator=g)
+        kmask = torch.where(torch.arange(l)[None, :] < lens[:, None], 0.0, -1e9)
+        kmask = kmask.reshape(m).to(device=device, dtype=torch.float32)
+        runs = []
+        if l <= bert_attn.MAX_SEQ_LEN:
+            kw = dict(seq_len=l, num_heads=heads, eps=1e-12)
+            attn_args = (x, kmask, wqkv, bqkv, wo, bo, lns, lnb)
+            nbytes = 2 * (2 * m * h + 4 * h * h + 3 * h + 3 * h) + 4 * m
+            ops = 2 * m * h * 4 * h + 2 * 2 * b * heads * l * l * (h // heads)
+            runs.append(("K1", "bert_attn", f"x [{m}, {h}] bf16 (B={b}, L={l}), {heads} heads",
+                         lambda: bert_attn.fused_attention_block(*attn_args, **kw),
+                         lambda: bert_attn.fused_attention_block_plain(*attn_args, **kw),
+                         bound(nbytes, bf16_ops=ops)))
+        if ffn_too or l > bert_attn.MAX_SEQ_LEN:
+            ffn_args = (x, wi, bi, wf, bf_, lns, lnb)
+            nbytes = 2 * (2 * m * h + 2 * h * f + f + 3 * h)
+            runs.append(("K2", "fused_ffn", f"x [{m}, {h}] x [{h}, {f}] x [{f}, {h}] bf16",
+                         lambda: fused_ffn.fused_ffn_ln(*ffn_args, eps=1e-12),
+                         lambda: fused_ffn.fused_ffn_ln_plain(*ffn_args, eps=1e-12),
+                         bound(nbytes, bf16_ops=2 * 2 * m * h * f)))
+        for kname, name, what, kernel, plain, (bms, by) in runs:
+            label = f"{kname} M={m} (B={b} L={l})"
+            log(f"{kname} {'fused_attention_block' if kname == 'K1' else 'fused_ffn_ln'}: {what}")
+            got, ref = kernel(), plain()
+            err = compare(label, got, ref)
+            compare_bits(label, got, ref, TEXT_BITS_SHARE, TEXT_BITS_ULP)
+            ms, pms = median_ms(kernel), median_ms(plain)
+            gms = graph_ms(kernel)
+            log(f"  {label} kernel {ms:.4f} ms, device {gms:.4f} ms (CUDA graph of 20), plain "
+                f"{pms:.4f} ms; bound {bms:.4f} ms ({by})")
+            out[name] = (err, ms, pms, bms, by, None)
+        if l <= bert_attn.MAX_SEQ_LEN:  # the attention core alone
+            qkv = randn(m, 3 * h)
+            ctx = bert_attn.attention_core(qkv, kmask, l, heads)
+            compare(f"core B={b} L={l}", ctx,
+                    bert_attn.attention_ctx_f32(qkv, kmask, l, heads).to(bf))
+            qt = bert_attn.query_tile(b, l, heads, gemm.sms_of(qkv))
+            log(f"  core B={b} L={l} ({qt}-row query tiles): device "
+                f"{graph_ms(lambda: bert_attn.attention_core(qkv, kmask, l, heads)) * 1e3:.2f} us")
+        products = (("attn_qkv", 3 * h, h, _build.EPI_BIAS_BF16),
+                    ("attn_out", h, h, _build.EPI_BIAS_RESID_F32),
+                    ("ffn_in", f, h, _build.EPI_BIAS_GELU_BF16),
+                    ("ffn_out", h, f, _build.EPI_BIAS_RESID_F32))
+        parts = []
+        for pname, n, k, epi in products:  # each GEMM beside torch.addmm
+            a, w, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n, scale=0.02)
+            resid = randn(m, n) if epi == _build.EPI_BIAS_RESID_F32 else None
+            plan = gemm.gemm_plan(m, n, k, gemm.sms_of(a), split=resid is not None)
+            if plan[3] > 1:  # split-K: f32 partials, bias and residual in the LayerNorm
+                epi, bias, resid = _build.EPI_PARTIAL_F32, None, None
+            y = torch.empty((plan[3], m, n) if plan[3] > 1 else (m, n), device=device,
+                            dtype=bf if epi in (_build.EPI_BIAS_BF16, _build.EPI_BIAS_GELU_BF16)
+                            else torch.float32)
+            t = graph_ms(lambda: gemm.gemm(a, w, bias, resid, y, epi, plan, pname))
+            lib = graph_ms(lambda: torch.addmm(bias if bias is not None else w[0], a, w))
+            parts.append(f"{pname} [{m}x{k}]x[{k}x{n}] plan {plan}: {t * 1e3:.2f} us "
+                         f"({2 * m * n * k / t / 1e9:.0f} TFLOP/s), addmm {lib * 1e3:.2f} us")
+        log("  GEMM device time per launch (CUDA graph of 20): " + "; ".join(parts))
+    return out, (x, kmask, wqkv, bqkv, wo, bo, lns, lnb, wi, bi, wf, bf_)
 
 
 def near_tie(top2, tol_abs=DEC_TOL, tol_rel=DEC_TOL):

@@ -5,6 +5,9 @@ Every ``mmdx_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
 with ``ctypes``. The library is built at first use into
 ``mmdx_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of the
 sources, so an edited source rebuilds and a fresh checkout builds by itself.
+The link needs no ``libcuda``: the one driver-API call, the GEMM's
+``cuTensorMapEncodeTiled`` (TMA descriptors), is resolved at run time
+through ``cudaGetDriverEntryPoint`` (``csrc/gemm.cu``).
 
 Each entry point enqueues one kernel on the stream it is given and returns
 the launch's ``cudaError_t``; :func:`check` turns a nonzero code into an
@@ -24,12 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
-    # A, B, bias, resid, C, M, N, K, epilogue, stream
-    "mmdx_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # y, gamma, beta, out, M, H, eps, stream
-    "mmdx_layernorm_f32_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
-    # qkv, kmask, ctx, B, L, H, heads, scale, stream
-    "mmdx_bert_attn": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # A, B, bias, resid, C, M, N, K, epilogue, bm, bn, stages, splits, stream
+    "mmdx_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # y, splits, bias, resid, gamma, beta, out, M, H, eps, stream
+    "mmdx_layernorm_f32_bf16": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # qkv, kmask, ctx, B, L, H, heads, query tile, scale, stream
+    "mmdx_bert_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, kv, mask, bias, acc, m, l, B, nb, K, heads, head_dim, ranks, stream
     "mmdx_beam_attn_partial": [_P] * 7 + [_I] * 6 + [_P],
     # q, kv, mask, bias, ctx, B, nb, K, heads, head_dim, ranks, stream
@@ -43,8 +46,8 @@ SIGNATURES = {
     # hidden, cross_ln, wq, wo_c, ck, cv, enc_bias, ffn_ln, wi, wo_f, y, ctx,
     # x, hmid, out, ws, N, D, F, KK, heads, eps, blocks, sq, so, si, sf, stream
     "mmdx_t5_cross_ffn": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
-    # qkv, kmask, ctx (f32), B, L, H, heads, scale, stream
-    "mmdx_bert_attn_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, kmask, ctx (f32), B, L, H, heads, query tile, scale, stream
+    "mmdx_bert_attn_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # A, B, alpha, bias, bias_rows, res, rs, A2, B2, alpha2, bias2, K2,
     # s_out, relu, C, M, N, K, stream
     "mmdx_int8_gemm_requant": [_P, _P, _P, _P, _I, _P, _F, _P, _P, _P, _P, _I,
@@ -73,6 +76,7 @@ SIGNATURES = {
 EPI_BIAS_BF16 = 1
 EPI_BIAS_GELU_BF16 = 2
 EPI_BIAS_RESID_F32 = 3
+EPI_PARTIAL_F32 = 4     # f32 split-K partials [splits, M, N], summed by the LayerNorm
 
 # int8 GEMM dequantizing epilogues (csrc/int8_gemm.cu mmdx_int8_gemm_dequant)
 DQ_BF16 = 0             # bf16(acc*sc + bias)

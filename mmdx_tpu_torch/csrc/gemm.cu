@@ -1,185 +1,527 @@
-// Tiled bf16 GEMM with fused epilogues, plus the LayerNorm the fused BERT
-// blocks end with. Shared by the BERT kernels (ops/bert_attn.py,
-// ops/fused_ffn.py); each of them is a short sequence of launches of the
-// entry points below. The EPI_BF16, EPI_RELU_BF16 and EPI_RESID_BF16
-// epilogues have no caller since the T5 half step became one kernel
-// (csrc/t5_cross_ffn.cu); they stay because taking their cases out of the
-// switch changes the code emitted for the others and slowed K2 on an H100
-// (scripts/bench_decode_kernels.py, its K2 lines).
+// The bf16 GEMM under the fused BERT blocks (ops/bert_attn.py K1,
+// ops/fused_ffn.py K2), and the LayerNorm each of those blocks ends with.
 //
-// GEMM: C[M, N] = A[M, K] @ B[K, N], A and B row-major bf16 (B is the flax
-// [in, out] kernel layout), f32 accumulation on the tensor cores through
-// nvcuda::wmma (mma.sync, 16x16x16 bf16 fragments). A 64x64 output tile per
-// block of 4 warps, each warp 32x32; K advances 32 at a time through shared
-// memory with 16-byte loads. Rows past M read as zero and are not written.
-// N must be a multiple of 64 and K of 32 (the wrappers check). No
-// double-buffering, TMA or wgmma yet: correct and simple first.
-#include <mma.h>
+// Replaces the projections of mmdx_tpu/ops/pallas_bert_attn.py:_kernel and
+// mmdx_tpu/ops/pallas_ffn.py:_ffn_kernel, which the TPU ran on the MXU from
+// VMEM-resident weights: C[M, N] = epi(A[M, K] @ B[K, N]), A row-major bf16,
+// B the flax [in, out] kernel layout (row-major [K, N]), f32 accumulation.
+//
+// What bounds it on the H100: at the classify rows (M = 3072, B=32 L=96)
+// the four products of one layer are 44 GFLOP against ~40 MB, far above the
+// card's ~295 FLOP/byte, so the tensor cores bound it (45 us at 989
+// TFLOP/s); at one request's rows (M <= 384) the 14 MB of bf16 weights do
+// (4 us at 3.35 TB/s), and only a grid that keeps every SM streaming its
+// slab of weights comes near that.
+//
+// Design (sm_90a): warpgroup MMAs (wgmma.mma_async m64nBNk16, bf16 -> f32)
+// fed by the Tensor Memory Accelerator. A block is BM/64 consumer
+// warpgroups, each owning 64 rows of the BM x BN output tile in registers,
+// and one producer warp, one thread of which issues the TMA copies of each
+// K step's A tile [BM x 64] and B tile [64 x BN] (cp.async.bulk.tensor.2d,
+// 128-byte swizzle) into a ring of `stages` shared-memory stages with
+// full/empty mbarriers. A is read K-major; B stays in its [K, N] layout and
+// is read MN-major through wgmma's transpose-B bit, so no weight is copied
+// or transposed. Each consumer keeps one wgmma group in flight and frees a
+// stage as soon as the group that read it retires. The epilogue stages the
+// tile in shared memory over the drained ring and writes it in coalesced
+// 16-byte chunks. Two blocks fit an SM (<= 96 KB of stages, <= 112
+// registers a thread, the whole unified L1 as shared memory), so one
+// block's fill and epilogue can overlap the other's MMAs. No setmaxnreg:
+// 64 accumulators a thread fit the registers every thread gets.
+//
+// The tile plan (BM, BN, stages, K splits) comes from ops/gemm.py:gemm_plan:
+// 128 x 128 tiles where they fill the SMs, else 64-row tiles, 64 columns
+// wide if that is what fills them, and the two N = 768 products split over
+// K when their tiles alone leave SMs idle. Rows past M load as zeros (TMA's out-of-bounds fill) and
+// are not stored.
+//
+// Epilogues are template parameters, with the Pallas bodies' rounding
+// points: bf16(acc + b); bf16(gelu_erf(acc + b)) with erff; f32((acc + b) +
+// resid); and an f32 split-K partial [split, M, N] without bias, which the
+// LayerNorm kernel below sums in split order, then adds bias and residual,
+// so split-K is deterministic and needs no atomics.
+#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point is resolved at run time
+
+#include <type_traits>
 
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 enum Epilogue : int {
-  EPI_BF16 = 0,            // bf16(acc)
   EPI_BIAS_BF16 = 1,       // bf16(acc + bias)
   EPI_BIAS_GELU_BF16 = 2,  // bf16(gelu_erf(acc + bias))
   EPI_BIAS_RESID_F32 = 3,  // f32((acc + bias) + resid)
-  EPI_RELU_BF16 = 4,       // bf16(max(bf16(acc), 0))
-  EPI_RESID_BF16 = 5,      // bf16(resid + bf16(acc))
+  EPI_PARTIAL_F32 = 4,     // f32(acc) into split blockIdx.z of [splits, M, N]
 };
 
-constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
-constexpr int LDA = BK + 8;  // bf16 elements; rows stay 16-byte aligned
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;  // f32 staging tile for the epilogue
-constexpr int SMEM_AB = (BM * LDA + BK * LDB) * 2;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM_BYTES = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
+constexpr int BK = 64;               // one 128-byte swizzle row of bf16
+constexpr int BOX = 64 * BK * 2;     // one 64 x 64 bf16 TMA box, 8 KB
+constexpr size_t MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
 
-__global__ void __launch_bounds__(THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-                 void* __restrict__ C, int M, int N, int K, int epi) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const int gr = row0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < M) v = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + k0 + cc);
-      *reinterpret_cast<uint4*>(As + r * LDA + cc) = v;
-    }
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + r * LDB + cc) =
-          *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * N + col0 + cc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// ---------------------------------------------------------------------------
+// mbarrier, TMA and wgmma primitives
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// Wait until the phase of parity `parity` has completed. A barrier that no
+// arrival completes within ~10 s of polling (a wrong phase or byte count)
+// traps, so a fault shows as a failed launch and not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
   }
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
 
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units), layout 1.
+// K-major A: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); a
+// 16-deep K step is 32 bytes along the row (LBO unused). MN-major B: each
+// 64-column box holds 64 K rows of 128 bytes; 8-row K groups are 1024 bytes
+// apart (SBO), 64-column boxes BOX bytes apart (LBO); a K step is 16 rows.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator registers across the async MMAs
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16, K-major) * B (16 x BN, MN-major: imm-trans-b = 1), f32
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_m64n64(d, da, db);
+  else wgmma_m64n128(d, da, db);
+}
+
+// the ring of stages, or the epilogue's staging tile (f32 rows padded by
+// 16 bytes) where that is larger
+__host__ __device__ constexpr int ring_bytes(int bm, int bn, int stages) {
+  return stages * (bm + bn) * BK * 2 > bm * (bn * 4 + 16) ? stages * (bm + bn) * BK * 2
+                                                           : bm * (bn * 4 + 16);
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float gelu_erf(float u) {
+  return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
+}
+
+// ---------------------------------------------------------------------------
+// the GEMM
+// ---------------------------------------------------------------------------
+// grid (N / BN, ceil(M / BM), splits); `steps` K steps of 64 per split.
+// Thread t of consumer warpgroup c holds, for each 8-column group j, the
+// accumulators 4j..4j+3 at rows 64c + 16(t/32) + (t%32)/4 (+8 for the last
+// two) and columns 8j + 2(t%4) (+1): the wgmma m64nNk16 f32 layout.
+template <int BM, int BN, int EPI>
+__global__ void __launch_bounds__(BM / 64 * 128 + 32, 2)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, const bf16* __restrict__ bias,
+                  const bf16* __restrict__ resid, void* __restrict__ C, int M, int N, int steps,
+                  int stages) {
+  constexpr int A_BYTES = BM * BK * 2, STAGE = A_BYTES + BN * BK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle pattern is a function of the address: stages start on 1 KB
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ring_bytes(BM, BN, stages));
+  uint64_t* empty = full + stages;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, k0 = blockIdx.z * steps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], BM / 64);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = e / BN, c = e % BN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr >= M) continue;
-    const float v = Cs[r * LDC + c];
-    const size_t o = (size_t)gr * N + gc;
-    bf16* cb = reinterpret_cast<bf16*>(C);
-    switch (epi) {
-      case EPI_BF16:
-        cb[o] = f2bf(v);
-        break;
-      case EPI_BIAS_BF16:
-        cb[o] = f2bf(v + bf2f(bias[gc]));
-        break;
-      case EPI_BIAS_GELU_BF16: {
-        const float u = v + bf2f(bias[gc]);
-        cb[o] = f2bf(0.5f * u * (1.0f + erff(u * 0.70710678118654752f)));
-        break;
+  if (wg == BM / 64) {  // the producer warp: one thread keeps the ring full
+    if (t == 0) {
+      int s = 0;
+      unsigned phase = 0;
+      for (int i = 0; i < steps; ++i) {
+        mbar_wait(&empty[s], phase ^ 1);  // round 0 passes: the ring starts empty
+        unsigned char* st = smem + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        const int kc = (k0 + i) * BK;
+        tma_load_2d(st, &map_a, kc, m0, &full[s]);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(st + A_BYTES + c * BOX, &map_b, n0 + c * 64, kc, &full[s]);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
       }
-      case EPI_BIAS_RESID_F32:
-        reinterpret_cast<float*>(C)[o] = (v + bf2f(bias[gc])) + bf2f(resid[o]);
-        break;
-      case EPI_RELU_BF16:
-        cb[o] = f2bf(fmaxf(round_bf16(v), 0.0f));
-        break;
-      case EPI_RESID_BF16:
-        cb[o] = f2bf(bf2f(resid[o]) + round_bf16(v));
-        break;
     }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. + 64 of the tile
+  const int cw = wg;
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.0f;
+  int s = 0, prev = 0;
+  unsigned phase = 0;
+  for (int i = 0; i < steps; ++i) {
+    mbar_wait(&full[s], phase);
+    const unsigned char* a = smem + s * STAGE + cw * 64 * (BK * 2);
+    const unsigned char* b = smem + s * STAGE + A_BYTES;
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<BN>(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                     wgmma_desc(b + kk * 16 * (BK * 2), BOX, 1024));
+    wgmma_commit();
+    fence_operands(acc);
+    wgmma_wait<1>();  // the previous step's group retired: free its stage
+    if (i > 0 && t == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // Epilogue through shared memory: the fragments, plus bias (and GELU,
+  // rounded to bf16 for the bf16 outputs), go to a staging tile over the
+  // drained ring, then each warpgroup writes its 64 rows in 16-byte chunks,
+  // consecutive threads on consecutive chunks of a row (adding the residual
+  // there). Stores straight from the fragments (8 rows x 16 bytes a warp
+  // instruction) took ~40% of the kernel's time at M = 3072.
+  using OutT = typename std::conditional<EPI == EPI_BIAS_BF16 || EPI == EPI_BIAS_GELU_BF16,
+                                         bf16, float>::type;
+  constexpr int PITCH = BN * (int)sizeof(OutT) + 16;  // bytes; the pad spreads rows over banks
+  named_barrier(1, BM / 64 * 128);  // every consumer's MMAs have read the ring
+  unsigned char* stage_rows = smem + cw * 64 * PITCH;
+  const int frag_row = (t / 32) * 16 + (t % 32) / 4, frag_col = (t % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = frag_col + j * 8;
+    float b0 = 0.0f, b1 = 0.0f;
+    if constexpr (EPI != EPI_PARTIAL_F32) {
+      const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + col);
+      b0 = __low2float(bb);
+      b1 = __high2float(bb);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h] + b0, v1 = acc[4 * j + 2 * h + 1] + b1;
+      OutT* dst = reinterpret_cast<OutT*>(stage_rows + (frag_row + 8 * h) * PITCH) + col;
+      if constexpr (EPI == EPI_BIAS_GELU_BF16) {
+        v0 = gelu_erf(v0);
+        v1 = gelu_erf(v1);
+      }
+      if constexpr (sizeof(OutT) == 2)
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+      else
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+    }
+  }
+  named_barrier(2 + cw, 128);  // this warpgroup's rows are staged
+  constexpr int CHUNKS = BN * (int)sizeof(OutT) / 16;  // 16-byte chunks a row
+  OutT* out = static_cast<OutT*>(C) + (EPI == EPI_PARTIAL_F32 ? (size_t)blockIdx.z * M * N : 0);
+  for (int c = t; c < 64 * CHUNKS; c += 128) {
+    const int r = c / CHUNKS, row = m0 + cw * 64 + r;
+    if (row >= M) break;  // rows are in order: the rest lie past M too
+    const int col = (c % CHUNKS) * (16 / (int)sizeof(OutT));
+    uint4 v = *reinterpret_cast<const uint4*>(stage_rows + r * PITCH + (c % CHUNKS) * 16);
+    const size_t o = (size_t)row * N + n0 + col;
+    if constexpr (EPI == EPI_BIAS_RESID_F32) {  // (acc + b) + resid
+      float rr[4];
+      load4(resid + o, rr);
+      float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] += rr[e];
+    }
+    *reinterpret_cast<uint4*>(out + o) = v;
   }
 }
 
-// LayerNorm over rows of an f32 [M, H] tensor -> bf16, one warp per row,
-// f32 statistics (two passes over the row, which stays in L1).
-__global__ void layernorm_f32_bf16_kernel(const float* __restrict__ y,
+// LayerNorm over rows of f32 [M, H] -> bf16, one warp per row, f32
+// statistics in two passes over the row, which stays in registers: lane l
+// holds columns 4l..4l+3 of each 128-column chunk (H % 128 == 0, H <= 1024),
+// so every load of a row is in flight at once. With bias != nullptr, y
+// holds `splits` f32 partials [splits, M, H] of the product: the row is
+// ((p_0 + p_1 + ... in split order) + bias) + resid.
+constexpr int LN_MAX_CHUNKS = 8;
+
+__global__ void layernorm_f32_bf16_kernel(const float* __restrict__ y, int splits,
+                                          const bf16* __restrict__ bias,
+                                          const bf16* __restrict__ resid,
                                           const bf16* __restrict__ gamma,
-                                          const bf16* __restrict__ beta,
-                                          bf16* __restrict__ out, int M, int H,
-                                          float eps) {
+                                          const bf16* __restrict__ beta, bf16* __restrict__ out,
+                                          int M, int H, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (row >= M) return;
-  const float* yr = y + (size_t)row * H;
+  const int col = (threadIdx.x % 32) * 4, chunks = H / 128;
+  const size_t base = (size_t)row * H + col, split_stride = (size_t)M * H;
+  float v[LN_MAX_CHUNKS][4];
+#pragma unroll
+  for (int c = 0; c < LN_MAX_CHUNKS; ++c)
+    if (c < chunks) load4(y + base + c * 128, v[c]);
+  for (int p = 1; p < splits; ++p) {
+#pragma unroll
+    for (int c = 0; c < LN_MAX_CHUNKS; ++c) {
+      if (c >= chunks) continue;
+      float u[4];
+      load4(y + p * split_stride + base + c * 128, u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[c][e] += u[e];
+    }
+  }
+  if (bias != nullptr) {
+#pragma unroll
+    for (int c = 0; c < LN_MAX_CHUNKS; ++c) {
+      if (c >= chunks) continue;
+      float b[4], r[4];
+      load4(bias + col + c * 128, b);
+      load4(resid + base + c * 128, r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[c][e] = (v[c][e] + b[e]) + r[e];
+    }
+  }
   float s = 0.0f;
-  for (int c = lane; c < H; c += 32) s += yr[c];
+#pragma unroll
+  for (int c = 0; c < LN_MAX_CHUNKS; ++c)
+    if (c < chunks) s += (v[c][0] + v[c][1]) + (v[c][2] + v[c][3]);
   const float mean = warp_sum(s) / H;
   float s2 = 0.0f;
-  for (int c = lane; c < H; c += 32) {
-    const float d = yr[c] - mean;
-    s2 += d * d;
+#pragma unroll
+  for (int c = 0; c < LN_MAX_CHUNKS; ++c)
+    if (c < chunks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s2 += (v[c][e] - mean) * (v[c][e] - mean);
+  const float rs = rsqrtf(warp_sum(s2) / H + eps);
+#pragma unroll
+  for (int c = 0; c < LN_MAX_CHUNKS; ++c) {
+    if (c >= chunks) continue;
+    float g[4], b[4];
+    load4(gamma + col + c * 128, g);
+    load4(beta + col + c * 128, b);
+    uint2 o;
+    o.x = pack_bf16((v[c][0] - mean) * rs * g[0] + b[0], (v[c][1] - mean) * rs * g[1] + b[1]);
+    o.y = pack_bf16((v[c][2] - mean) * rs * g[2] + b[2], (v[c][3] - mean) * rs * g[3] + b[3]);
+    *reinterpret_cast<uint2*>(out + base + c * 128) = o;
   }
-  const float r = rsqrtf(warp_sum(s2) / H + eps);
-  bf16* orow = out + (size_t)row * H;
-  for (int c = lane; c < H; c += 32)
-    orow[c] = f2bf((yr[c] - mean) * r * bf2f(gamma[c]) + bf2f(beta[c]));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call: resolved once through the
+// runtime, so the library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix read in boxes of [box_rows, 64]
+// columns, 128-byte swizzle, zeros past its edges
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+constexpr size_t smem_bytes(int bm, int bn, int stages) {
+  return ring_bytes(bm, bn, stages) + 1024 + 2 * stages * sizeof(uint64_t);
+}
+
+template <int BM, int BN, int EPI>
+int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb, const void* bias, const void* resid,
+                void* C, int M, int N, int steps, int stages, int splits, cudaStream_t stream) {
+  static size_t configured = 0;  // the dynamic shared memory the kernel may take
+  const size_t smem = smem_bytes(BM, BN, stages);
+  if (smem > configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_wgmma_kernel<BM, BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // the whole unified L1 as shared memory, so two blocks' rings fit an SM
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gemm_wgmma_kernel<BM, BN, EPI>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  const dim3 grid(N / BN, (M + BM - 1) / BM, splits);
+  gemm_wgmma_kernel<BM, BN, EPI><<<grid, BM / 64 * 128 + 32, smem, stream>>>(
+      ma, mb, static_cast<const bf16*>(bias), static_cast<const bf16*>(resid), C, M, N, steps,
+      stages);
+  return launch_status();
+}
+
+template <int BM, int BN>
+int launch_epi(int epi, const CUtensorMap& ma, const CUtensorMap& mb, const void* bias,
+               const void* resid, void* C, int M, int N, int steps, int stages, int splits,
+               cudaStream_t s) {
+  switch (epi) {
+    case EPI_BIAS_BF16:
+      return launch_gemm<BM, BN, EPI_BIAS_BF16>(ma, mb, bias, resid, C, M, N, steps, stages, splits, s);
+    case EPI_BIAS_GELU_BF16:
+      return launch_gemm<BM, BN, EPI_BIAS_GELU_BF16>(ma, mb, bias, resid, C, M, N, steps, stages,
+                                                     splits, s);
+    case EPI_BIAS_RESID_F32:
+      return launch_gemm<BM, BN, EPI_BIAS_RESID_F32>(ma, mb, bias, resid, C, M, N, steps, stages,
+                                                     splits, s);
+    default:
+      return launch_gemm<BM, BN, EPI_PARTIAL_F32>(ma, mb, bias, resid, C, M, N, steps, stages,
+                                                  splits, s);
+  }
 }
 
 }  // namespace
 
-MMDX_EXPORT int mmdx_gemm_bf16(const void* A, const void* B, const void* bias,
-                               const void* resid, void* C, int M, int N, int K,
-                               int epi, void* stream) {
-  if (M <= 0 || N % BN != 0 || K % BK != 0 || epi < 0 || epi > EPI_RESID_BF16)
+// C = epi(A[M, K] @ B[K, N]) on the plan (bm, bn, stages, splits) of
+// ops/gemm.py:gemm_plan. bm 64 or 128, bn 64 or 128 dividing N, K a
+// multiple of 64 * splits, stages >= 2 (the ring's depth), splits > 1 only with EPI_PARTIAL_F32 (C is then
+// f32 [splits, M, N]); A, B, C, bias and resid 16-byte aligned.
+MMDX_EXPORT int mmdx_gemm_bf16(const void* A, const void* B, const void* bias, const void* resid,
+                               void* C, int M, int N, int K, int epi, int bm, int bn, int stages,
+                               int splits, void* stream) {
+  if (M <= 0 || (bm != 64 && bm != 128) || (bn != 64 && bn != 128) || N <= 0 || N % bn != 0 ||
+      splits < 1 || K <= 0 || K % (BK * splits) != 0 || stages < 2 ||
+      smem_bytes(bm, bn, stages) > MAX_SMEM ||
+      epi < EPI_BIAS_BF16 || epi > EPI_PARTIAL_F32 || (splits > 1 && epi != EPI_PARTIAL_F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(B),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(resid), C, M, N,
-      K, epi);
-  return launch_status();
+  CUtensorMap ma, mb;
+  if (!make_map(&ma, A, M, K, bm) || !make_map(&mb, B, K, N, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = K / BK / splits;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 64)
+    return bn == 64 ? launch_epi<64, 64>(epi, ma, mb, bias, resid, C, M, N, steps, stages, splits, s)
+                    : launch_epi<64, 128>(epi, ma, mb, bias, resid, C, M, N, steps, stages, splits, s);
+  return bn == 64 ? launch_epi<128, 64>(epi, ma, mb, bias, resid, C, M, N, steps, stages, splits, s)
+                  : launch_epi<128, 128>(epi, ma, mb, bias, resid, C, M, N, steps, stages, splits, s);
 }
 
-MMDX_EXPORT int mmdx_layernorm_f32_bf16(const void* y, const void* gamma,
-                                        const void* beta, void* out, int M,
-                                        int H, float eps, void* stream) {
-  if (M <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// out = bf16(LayerNorm(y)) over rows of H (a multiple of 128, at most
+// 1024); y f32 [M, H], or with bias (and
+// resid, both bf16) the `splits` partials [splits, M, H] of a product whose
+// row is summed in split order, then plus bias, then plus resid.
+MMDX_EXPORT int mmdx_layernorm_f32_bf16(const void* y, int splits, const void* bias,
+                                        const void* resid, const void* gamma, const void* beta,
+                                        void* out, int M, int H, float eps, void* stream) {
+  if (M <= 0 || H <= 0 || H % 128 != 0 || H > 128 * LN_MAX_CHUNKS || splits < 1 ||
+      (bias == nullptr && splits != 1) || ((bias == nullptr) != (resid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rows_per_block = 4;
-  layernorm_f32_bf16_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                              32 * rows_per_block, 0,
+  layernorm_f32_bf16_kernel<<<(M + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const bf16*>(gamma),
+      static_cast<const float*>(y), splits, static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(resid), static_cast<const bf16*>(gamma),
       static_cast<const bf16*>(beta), static_cast<bf16*>(out), M, H, eps);
   return launch_status();
 }

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmdx_tpu_torch.ops.fused_ffn import layer_norm_f32
+from mmdx_tpu_torch.ops.gemm import layer_norm_f32
 
 
 def param(*shape) -> nn.Parameter:

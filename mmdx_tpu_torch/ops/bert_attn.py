@@ -5,22 +5,28 @@ Port of ``mmdx_tpu/ops/pallas_bert_attn.py:fused_attention_block``: the bf16
 ``_kernel`` (K1, below) and the W8A8 ``_kernel_int8`` of ``int8_matmuls=True``
 (K7, ``fused_attention_block_int8`` at the end of the module).
 
-K1 kernel (CUDA C++, ``csrc/gemm.cu`` + ``csrc/bert_attn.cu``), four launches:
+K1 kernel (CUDA C++, ``csrc/gemm.cu`` through ``ops/gemm.py`` +
+``csrc/bert_attn.cu``), four launches:
 
-1. ``qkv = bf16(x @ Wqkv + bqkv)`` — tiled bf16 tensor-core GEMM, bias
-   epilogue (merged weights: q|k|v column blocks, head-major in each);
-2. attention core, one block per (sequence, head): Q, K^T, V staged in
-   shared memory, f32 scores and softmax, bf16 probabilities, bf16 context;
-3. ``y = f32((ctx @ Wo + bo) + x)`` — GEMM with bias + residual epilogue;
-4. ``out = bf16(LayerNorm(y))``, eps 1e-12, f32 statistics.
+1. ``qkv = bf16(x @ Wqkv + bqkv)`` — the wgmma GEMM on TMA-fed stages,
+   bias epilogue (merged weights: q|k|v column blocks, head-major in each);
+2. the attention core on the tensor cores, one block per (sequence, head,
+   query tile of ``query_tile`` rows): Q, K, V and the key mask in shared
+   memory by cp.async, ``mma.sync`` scores in f32, scale and mask in f32,
+   the softmax across a quad's lanes, bf16 probabilities, ``mma.sync``
+   context in f32, written as bf16;
+3. ``ctx @ Wo`` — the GEMM, into f32 ``(acc + bo) + x`` rows, or split over
+   K into f32 partials where ``gemm_plan`` does so to fill the SMs;
+4. ``out = bf16(LayerNorm(y))``, eps 1e-12, f32 statistics (summing the
+   partials in split order, then adding ``bo``, then ``x``).
 
 What bounds it on the H100: at B=32, L=96 the block is 15.4 GFLOP, nearly
-all in the two projections, which run on the tensor cores; with the
+all in the two projections (16 us on the tensor cores); with the
 intermediates in device memory the four launches also move ~71 MB, so the
-byte floor (~21 us) sits just above the FLOP floor (~16 us), and fusing the
-launches would leave it FLOP-bound. The attention core is small (L <= 128)
-and each block computes only its own sequence's scores:
-the TPU kernel's block-diagonal packing of several sequences into one score
+byte floor (~21 us) sits just above the FLOP floor, and fusing the
+launches would leave it FLOP-bound. The attention core is small (L <= 128,
+0.9 GFLOP) and each block computes only its own sequence's scores: the TPU
+kernel's block-diagonal packing of several sequences into one score
 matrix, a layout fix for the MXU, would multiply the score work here for
 nothing. The merged qkv, the context and the f32 pre-LayerNorm rows, which
 the TPU kernel kept in VMEM, go through device memory (scratch from
@@ -31,10 +37,52 @@ from __future__ import annotations
 import torch
 
 from mmdx_tpu_torch import _build
-from mmdx_tpu_torch.ops.fused_ffn import layer_norm_f32, quant_rows
+from mmdx_tpu_torch.ops import gemm
+from mmdx_tpu_torch.ops.fused_ffn import quant_rows
+from mmdx_tpu_torch.ops.gemm import cdiv, layer_norm_f32
 
 F32 = torch.float32
 MAX_SEQ_LEN = 128
+HEAD_DIM = 64  # the attention core's mma tiles take heads of 64
+QUERY_TILES = (64, 48, 32, 16)
+
+
+def query_tile(batch: int, seq_len: int, heads: int, sms: int = gemm.H100_SMS) -> int:
+    """Query rows per block of the attention core (a multiple of 16, one
+    warp per 16 rows): the tallest tile, no taller than the sequence's
+    padded length, whose grid (heads x sequences x query tiles) fills the
+    SMs; else 16. Taller tiles read each sequence's K and V fewer times."""
+    padded = cdiv(seq_len, 16) * 16
+    for qt in QUERY_TILES:
+        if qt <= padded and heads * batch * cdiv(seq_len, qt) >= sms:
+            return qt
+    return 16
+
+
+def attention_core(qkv, kmask, seq_len: int, num_heads: int, out_dtype=torch.bfloat16):
+    """Launch the attention core (``csrc/bert_attn.cu``) on the merged
+    ``qkv [M, 3H]`` (CUDA bf16, checked by the caller): the context
+    ``[M, H]`` in ``out_dtype`` (bf16 for K1, f32 for K7). Counts no launch:
+    the blocks that call it do."""
+    m, h = qkv.shape[0], qkv.shape[1] // 3
+    b = m // seq_len
+    ctx = torch.empty((m, h), dtype=out_dtype, device=qkv.device)
+    lib = _build.lib()
+    fn = lib.mmdx_bert_attn_f32 if out_dtype == F32 else lib.mmdx_bert_attn
+    _build.check(fn(qkv.data_ptr(), kmask.data_ptr(), ctx.data_ptr(), b, seq_len, h,
+                    num_heads, query_tile(b, seq_len, num_heads, gemm.sms_of(qkv)),
+                    1.0 / float(h // num_heads) ** 0.5, _build.stream(qkv)),
+                 "attn_core_f32" if out_dtype == F32 else "attn_core")
+    return ctx
+
+
+def _check_shape(name: str, m: int, h: int, seq_len: int, num_heads: int) -> None:
+    if m % seq_len or not 0 < seq_len <= MAX_SEQ_LEN:
+        raise ValueError(f"{name}: seq_len {seq_len} must divide {m} rows and be "
+                         f"<= {MAX_SEQ_LEN}")
+    if h != num_heads * HEAD_DIM:
+        raise ValueError(f"{name}: unsupported width {h} / {num_heads} heads "
+                         f"(heads of {HEAD_DIM})")
 
 
 def attention_ctx_f32(qkv, kmask, seq_len: int, num_heads: int) -> torch.Tensor:
@@ -80,34 +128,18 @@ def fused_attention_block(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
                                            ln_bias, seq_len, num_heads, eps)
     m, h = x.shape
     bf = torch.bfloat16
-    if m % seq_len or not 0 < seq_len <= MAX_SEQ_LEN:
-        raise ValueError(f"fused_attention_block: seq_len {seq_len} must divide "
-                         f"{m} rows and be <= {MAX_SEQ_LEN}")
-    if h % 64 or h % num_heads or (h // num_heads) % 8:
-        raise ValueError(f"fused_attention_block: unsupported width {h} / {num_heads} heads")
     for t, name, shape in ((x, "x", (m, h)), (wqkv, "wqkv", (h, 3 * h)),
                            (bqkv, "bqkv", (3 * h,)), (wo, "wo", (h, h)),
                            (bo, "bo", (h,)), (ln_scale, "ln_scale", (h,)),
                            (ln_bias, "ln_bias", (h,))):
         _build.require(t, name, bf, shape)
     _build.require(kmask, "kmask", F32, (m,))
-    lib, s = _build.lib(), _build.stream(x)
+    _check_shape("fused_attention_block", m, h, seq_len, num_heads)
     qkv = torch.empty((m, 3 * h), dtype=bf, device=x.device)
-    ctx = torch.empty((m, h), dtype=bf, device=x.device)
-    y = torch.empty((m, h), dtype=F32, device=x.device)
-    out = torch.empty_like(x)
-    _build.check(lib.mmdx_gemm_bf16(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-                                    None, qkv.data_ptr(), m, 3 * h, h,
-                                    _build.EPI_BIAS_BF16, s), "attn_qkv")
-    _build.check(lib.mmdx_bert_attn(qkv.data_ptr(), kmask.data_ptr(), ctx.data_ptr(),
-                                    m // seq_len, seq_len, h, num_heads,
-                                    1.0 / float(h // num_heads) ** 0.5, s), "attn_core")
-    _build.check(lib.mmdx_gemm_bf16(ctx.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                                    x.data_ptr(), y.data_ptr(), m, h, h,
-                                    _build.EPI_BIAS_RESID_F32, s), "attn_out")
-    _build.check(lib.mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
-                                             ln_bias.data_ptr(), out.data_ptr(),
-                                             m, h, eps, s), "attn_ln")
+    gemm.gemm(x, wqkv, bqkv, None, qkv, _build.EPI_BIAS_BF16,
+              gemm.gemm_plan(m, 3 * h, h, gemm.sms_of(x)), "attn_qkv")
+    ctx = attention_core(qkv, kmask, seq_len, num_heads)
+    out = gemm.residual_gemm_ln(ctx, wo, bo, x, ln_scale, ln_bias, eps, "attn_out")
     fused_attention_block.launches += 1
     return out
 
@@ -163,30 +195,18 @@ def fused_attention_block_int8(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8, wos, bo,
 
     m, h = x.shape
     bf = torch.bfloat16
-    if m % seq_len or not 0 < seq_len <= MAX_SEQ_LEN:
-        raise ValueError(f"fused_attention_block_int8: seq_len {seq_len} must divide "
-                         f"{m} rows and be <= {MAX_SEQ_LEN}")
-    if h % 64 or h % num_heads or (h // num_heads) % 8:
-        raise ValueError(f"fused_attention_block_int8: unsupported width {h} / "
-                         f"{num_heads} heads")
     for t, name, shape in ((x, "x", (m, h)), (ln_scale, "ln_scale", (h,)),
                            (ln_bias, "ln_bias", (h,))):
         _build.require(t, name, bf, shape)
     _build.require(kmask, "kmask", F32, (m,))
-    lib, s = _build.lib(), _build.stream(x)
+    _check_shape("fused_attention_block_int8", m, h, seq_len, num_heads)
     xi, sx = quant_rows_launch(x)
     qkv = gemm_dequant(xi, wqkv_i8, sx, wqkvs, bqkv, None, bf, _build.DQ_BF16)
-    ctx = torch.empty((m, h), dtype=F32, device=x.device)
-    _build.check(lib.mmdx_bert_attn_f32(qkv.data_ptr(), kmask.data_ptr(), ctx.data_ptr(),
-                                        m // seq_len, seq_len, h, num_heads,
-                                        1.0 / float(h // num_heads) ** 0.5, s),
-                 "attn_int8_core")
+    ctx = attention_core(qkv, kmask, seq_len, num_heads, F32)
     ci, sc = quant_rows_launch(ctx)
     y = gemm_dequant(ci, wo_i8, sc, wos, bo, x, F32, _build.DQ_RESID_BIAS_F32)
     out = torch.empty_like(x)
-    _build.check(lib.mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
-                                             ln_bias.data_ptr(), out.data_ptr(),
-                                             m, h, eps, s), "attn_int8_ln")
+    gemm.layer_norm(y, ln_scale, ln_bias, out, eps, "attn_int8_ln")
     fused_attention_block_int8.launches += 1
     return out
 

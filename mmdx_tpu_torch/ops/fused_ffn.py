@@ -5,23 +5,28 @@ Port of ``mmdx_tpu/ops/pallas_ffn.py``: ``fused_ffn_ln`` (K2, below) and
 ``fused_ffn_ln_int8`` with its quantizers ``quant_rows`` and
 ``quant_weight_cols`` (K6, at the end of the module).
 
-K2 kernel (CUDA C++, ``csrc/gemm.cu``), three launches:
+K2 kernel (CUDA C++, ``csrc/gemm.cu`` through ``ops/gemm.py``), three
+launches:
 
-1. ``mid = bf16(gelu_erf(x @ Wi + bi))`` — tiled bf16 GEMM on the tensor
-   cores with the bias + exact-erf GELU epilogue (``erff``; the Pallas body
-   used an Abramowitz-Stegun erf only because Mosaic has no erf);
-2. ``y = f32((mid @ Wo + bo) + x)`` — the same GEMM with the bias + residual
-   epilogue;
-3. ``out = bf16(LayerNorm(y))`` — one warp per 768-wide row, f32 statistics.
+1. ``mid = bf16(gelu_erf(x @ Wi + bi))`` — the wgmma GEMM with the bias +
+   exact-erf GELU epilogue (``erff``; the Pallas body used an
+   Abramowitz-Stegun erf only because Mosaic has no erf);
+2. ``mid @ Wo`` — the same GEMM, into f32 ``(acc + bo) + x`` rows, or, where
+   ``gemm_plan`` splits K to fill the SMs (M below ~700: one request, B=4),
+   into f32 partials [splits, M, H] without bias;
+3. ``out = bf16(LayerNorm(y))`` — one warp per 768-wide row, f32
+   statistics; with partials it first sums them in split order, then adds
+   ``bo``, then ``x``.
 
-What bounds it on the H100: FLOPs. At B*L = 3072 rows the two products are
-2 x 3072 x 768 x 3072 MACs (29 GFLOP) against ~75 MB moved as built (~30 MB
-if fused), above the card's ~295 FLOP/byte break-even either way, so the
-design keeps every product on the tensor cores. The [rows, 3072] GELU
-intermediate, which the TPU kernel kept in VMEM, goes through device memory
-here (bf16 scratch from ``torch.empty``, 18 MB at 3072 rows); so does the
-f32 pre-LayerNorm row.
-Fusing them back into one launch (a block owning 32 full rows) is later work.
+What bounds it on the H100: FLOPs at the classify rows. At B*L = 3072 the
+two products are 2 x 3072 x 768 x 3072 MACs (29 GFLOP, 29 us at 989
+TFLOP/s) against ~75 MB moved as built (~30 MB if fused), above the card's
+~295 FLOP/byte break-even either way; at one request's rows the 9.4 MB of
+weights (2.8 us at 3.35 TB/s). The GEMM is ``wgmma`` on TMA-fed stages
+(``csrc/gemm.cu``), tiled by ``ops/gemm.py:gemm_plan`` for each M. The
+[rows, 3072] GELU intermediate, which the TPU kernel kept in VMEM, goes
+through device memory here (bf16 scratch from ``torch.empty``, 18 MB at
+3072 rows); so does the f32 pre-LayerNorm row.
 """
 from __future__ import annotations
 
@@ -29,15 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from mmdx_tpu_torch import _build
+from mmdx_tpu_torch.ops import gemm
+from mmdx_tpu_torch.ops.gemm import layer_norm_f32
 
 F32 = torch.float32
-
-
-def layer_norm_f32(y: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    """LayerNorm over the last dim in f32 (two-pass statistics)."""
-    mu = y.mean(-1, keepdim=True)
-    var = (y - mu).square().mean(-1, keepdim=True)
-    return (y - mu) * torch.rsqrt(var + eps) * scale.to(F32) + bias.to(F32)
 
 
 def fused_ffn_ln_plain(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
@@ -66,19 +66,10 @@ def fused_ffn_ln(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
         _build.require(t, name, bf, shape)
     if h % 64 or f % 64:
         raise ValueError(f"fused_ffn_ln: widths must be multiples of 64, got {h}, {f}")
-    lib, s = _build.lib(), _build.stream(x)
     mid = torch.empty((m, f), dtype=bf, device=x.device)
-    y = torch.empty((m, h), dtype=F32, device=x.device)
-    out = torch.empty_like(x)
-    _build.check(lib.mmdx_gemm_bf16(x.data_ptr(), wi.data_ptr(), bi.data_ptr(), None,
-                                    mid.data_ptr(), m, f, h,
-                                    _build.EPI_BIAS_GELU_BF16, s), "ffn_in")
-    _build.check(lib.mmdx_gemm_bf16(mid.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-                                    x.data_ptr(), y.data_ptr(), m, h, f,
-                                    _build.EPI_BIAS_RESID_F32, s), "ffn_out")
-    _build.check(lib.mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
-                                             ln_bias.data_ptr(), out.data_ptr(),
-                                             m, h, eps, s), "ffn_ln")
+    gemm.gemm(x, wi, bi, None, mid, _build.EPI_BIAS_GELU_BF16,
+              gemm.gemm_plan(m, f, h, gemm.sms_of(x)), "ffn_in")
+    out = gemm.residual_gemm_ln(mid, wo, bo, x, ln_scale, ln_bias, eps, "ffn_out")
     fused_ffn_ln.launches += 1
     return out
 
@@ -165,10 +156,7 @@ def fused_ffn_ln_int8(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale, ln_bias,
     mi, sm = quant_rows_launch(mid)
     y = gemm_dequant(mi, wo_i8, sm, wos, bo, x, F32, _build.DQ_BIAS_RESID_F32)
     out = torch.empty_like(x)
-    _build.check(_build.lib().mmdx_layernorm_f32_bf16(y.data_ptr(), ln_scale.data_ptr(),
-                                                      ln_bias.data_ptr(), out.data_ptr(),
-                                                      m, h, eps, _build.stream(x)),
-                 "ffn_int8_ln")
+    gemm.layer_norm(y, ln_scale, ln_bias, out, eps, "ffn_int8_ln")
     fused_ffn_ln_int8.launches += 1
     return out
 

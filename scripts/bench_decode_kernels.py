@@ -2,7 +2,7 @@
 """Device time per call of the beam step's kernels and of the shared bf16
 GEMM, for any checkout of the PyTorch port, on one CUDA card.
 
-    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks]
+    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans]
 
 PORT_ROOT (default: this repository) is the directory whose
 ``mmdx_tpu_torch`` is imported, so one call can time an older checkout
@@ -15,19 +15,32 @@ which leaves out the wrapper's host time:
   and 128 rows; K3 ``beam_attn.beam_decode_attention_partial`` at beam-4
   (nb 4, K = 724) for B = 4, 8 and 32; rows 5 and 7 (the normalised bf16
   and int8 reads) at greedy B=4 and B=64 (nb 1, K = 181) and at beam B=8;
-  K2 ``fused_ffn.fused_ffn_ln`` (two launches of ``csrc/gemm.cu``'s GEMM)
-  at BERT-base widths for the classify (M = 3072) and long-text (M = 16384)
-  rows, CUDA graphs of 10 calls.
+  K2 ``fused_ffn.fused_ffn_ln`` (two launches of ``csrc/gemm.cu``'s GEMM
+  and the LayerNorm) at BERT-base widths for one request (M = 32), B=4
+  (M = 384), the classify (M = 3072) and long-text (M = 16384) rows, CUDA
+  graphs of 10 calls; K1 ``bert_attn.fused_attention_block`` at B=1 L=32,
+  B=4 L=96 and B=32 L=96, and its attention core alone (``csrc/bert_attn.cu``)
+  at the same shapes; each of the four GEMM launches of a layer (qkv,
+  attention output, FFN in, FFN out, with the block's epilogue and, in a
+  checkout that splits K, the split the block runs) at M = 32, 384, 3072
+  and 16384, and the same product with the bias epilogue beside
+  ``torch.addmm(bias, a, b)`` on the same operands, the GEMM's yardstick.
 
 With ``--ranks`` (a checkout with ``beam_attn.cluster_ranks``), rows 5 and
 6 are also timed at every cluster size, 1, 2, 4 and 8 blocks, pinned by
-replacing ``cluster_ranks`` for the call, beside the size it picks.
+replacing ``cluster_ranks`` for the call, beside the size it picks. With
+``--plans`` (a checkout with ``ops/gemm.py``), each GEMM product with the
+bias epilogue at M = 384, 3072 and 16384 is also timed at every tile shape
+the kernel offers (64 or 128 rows x 64 or 128 columns; 128 x 128 with 3
+stages, two blocks to an SM, and with 4, one), beside the plan
+``gemm_plan`` picks.
 Inputs are made from seed 0 on the host, as in chip_smoke.py.
 """
 from __future__ import annotations
 
 import importlib.util
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -44,7 +57,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         smoke.fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    from mmdx_tpu_torch.ops import beam_attn, fused_ffn, t5_step
+    from mmdx_tpu_torch.ops import beam_attn, t5_step
 
     tag = root.name if root != HERE else "this tree"
     smoke.log(f"card: {smoke.card_line()}; mmdx_tpu_torch from {root} ({tag})")
@@ -123,13 +136,104 @@ def main() -> int:
                 report(f"row 5 B={b} nb={nb} K={kk} ranks={r}{' (picked)' if r == pick else ''}",
                        pinned(r, beam_attn.beam_decode_attention, q, kv, mask, bias))
 
-    h, f = 768, 3072
-    for m in (3072, 16384):
+    text_kernels(report, randn, dev, tag)
+    return 0
+
+
+def text_kernels(report, randn, dev, tag):
+    """K1, its attention core, K2 and the four GEMM launches of a BERT-base
+    layer; through ``ops/gemm.py`` where the checkout has it, else through
+    the older ``mmdx_gemm_bf16`` entry point (one launch per product)."""
+    import torch
+
+    from mmdx_tpu_torch import _build
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn
+
+    try:
+        from mmdx_tpu_torch.ops import gemm
+    except ImportError:
+        gemm = None
+    h, f, heads = 768, 3072, 12
+    attn_w = (randn(h, 3 * h, scale=h ** -0.5), randn(3 * h, scale=0.02),
+              randn(h, h, scale=h ** -0.5), randn(h, scale=0.02), 1.0 + randn(h, scale=0.1),
+              randn(h, scale=0.1))
+    for b, l in ((1, 32), (4, 96), (32, 96)):
+        m = b * l
+        x, qkv = randn(m, h), randn(m, 3 * h)
+        kmask = torch.zeros(m, device=dev)
+        kmask.reshape(b, l)[:, l - l // 4:] = -1e9
+        kw = dict(seq_len=l, num_heads=heads, eps=1e-12)
+        report(f"K1 B={b} L={l}",
+               lambda: bert_attn.fused_attention_block(x, kmask, *attn_w, **kw))
+        if hasattr(bert_attn, "attention_core"):
+            core = (lambda: bert_attn.attention_core(qkv, kmask, l, heads))
+        else:
+            ctx = torch.empty(m, h, device=dev, dtype=torch.bfloat16)
+            core = (lambda: _build.check(_build.lib().mmdx_bert_attn(
+                qkv.data_ptr(), kmask.data_ptr(), ctx.data_ptr(), b, l, h, heads, 0.125,
+                _build.stream(qkv)), "core"))
+        report(f"attention core B={b} L={l}", core)
+    for m in (32, 384, 3072, 16384):
         a = (randn(m, h), randn(h, f, scale=h ** -0.5), randn(f, scale=0.02),
              randn(f, h, scale=f ** -0.5), randn(h, scale=0.02), 1.0 + randn(h, scale=0.1),
              randn(h, scale=0.1))
         report(f"K2 M={m}", lambda a=a: fused_ffn.fused_ffn_ln(*a, eps=1e-12), calls=10)
-    return 0
+        for name, n, k, epi in (("qkv", 3 * h, h, 1), ("attn_out", h, h, 3),
+                                ("ffn_in", f, h, 2), ("ffn_out", h, f, 3)):
+            x, w, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n, scale=0.02)
+            resid = randn(m, n) if epi == 3 else None
+            if gemm is not None:
+                plan = gemm.gemm_plan(m, n, k, gemm.sms_of(x), split=epi == 3)
+                e, bb, rr = (4, None, None) if plan[3] > 1 else (epi, bias, resid)
+                y = torch.empty((plan[3], m, n) if plan[3] > 1 else (m, n), device=dev,
+                                dtype=torch.bfloat16 if e in (1, 2) else torch.float32)
+                fn = (lambda x=x, w=w, bb=bb, rr=rr, y=y, e=e, plan=plan:
+                      gemm.gemm(x, w, bb, rr, y, e, plan, name))
+                plan_tag = f" plan {plan}"
+            else:
+                y = torch.empty((m, n), device=dev,
+                                dtype=torch.bfloat16 if epi in (1, 2) else torch.float32)
+                fn = (lambda x=x, w=w, bias=bias, resid=resid, y=y, epi=epi:
+                      _build.check(_build.lib().mmdx_gemm_bf16(
+                          x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                          None if resid is None else resid.data_ptr(), y.data_ptr(),
+                          m, n, k, epi, _build.stream(x)), name))
+                plan_tag = ""
+            report(f"GEMM {name} M={m} N={n} K={k}{plan_tag}", fn)
+            # the yardstick: the bias epilogue (one bf16 product, no split)
+            # beside torch.addmm, the one PyTorch call of that function
+            yb = torch.empty((m, n), device=dev, dtype=torch.bfloat16)
+            if gemm is not None:
+                bplan = gemm.gemm_plan(m, n, k, gemm.sms_of(x))
+                bias_fn = (lambda x=x, w=w, bias=bias, yb=yb, bplan=bplan:
+                           gemm.gemm(x, w, bias, None, yb, 1, bplan, name))
+            else:
+                bias_fn = (lambda x=x, w=w, bias=bias, yb=yb:
+                           _build.check(_build.lib().mmdx_gemm_bf16(
+                               x.data_ptr(), w.data_ptr(), bias.data_ptr(), None, yb.data_ptr(),
+                               m, n, k, 1, _build.stream(x)), name))
+            report(f"GEMM {name} M={m} N={n} K={k} bias epilogue", bias_fn)
+            if m == 384 and name == "qkv":  # the host's share: enqueue only
+                bias_fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2000):
+                    bias_fn()
+                host = (time.perf_counter() - t0) / 2000 * 1e6
+                torch.cuda.synchronize()
+                print(f"[{tag}] GEMM {name} M={m} bias epilogue: host {host:.2f} us "
+                      f"per call (wrapper, plan, TMA descriptors, launch)", flush=True)
+            report(f"torch.addmm {name} M={m} N={n} K={k}",
+                   lambda x=x, w=w, bias=bias: torch.addmm(bias, x, w))
+            if "--plans" in sys.argv and gemm is not None and m >= 384:
+                for plan in ((64, 64, 4, 1), (64, 128, 4, 1), (128, 64, 4, 1),
+                             (128, 128, 3, 1), (128, 128, 4, 1)):
+                    if n % plan[1]:
+                        continue
+                    pick = " (picked)" if plan == gemm.gemm_plan(m, n, k, gemm.sms_of(x)) else ""
+                    report(f"GEMM {name} M={m} N={n} K={k} bias epilogue plan {plan}{pick}",
+                           lambda x=x, w=w, bias=bias, yb=yb, plan=plan:
+                           gemm.gemm(x, w, bias, None, yb, 1, plan, name))
 
 
 if __name__ == "__main__":

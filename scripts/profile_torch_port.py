@@ -30,13 +30,16 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
      (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode; for
      every generate K4's share and kernels per step (``decode_shares``),
-     with K3's share (beam) or row 5's (greedy); the script fails if one
-     of those shares reads 0. The full tables go to the git-ignored output
+     with K3's share (beam) or row 5's (greedy), and for fast classify B=4
+     and gray B=32 the text tower's GEMM, attention core and LayerNorm
+     shares (``text_shares``); the script fails if one of those shares
+     reads 0. The full tables go to the git-ignored output
      directory (``out_dir`` below);
   5. the routes of Queue 2 rows 9, 12, 13 and 17, each pair in turns (A, B,
      B, A) three times after a warm-up: long-text fast classify at L=512
      (``max_len`` 512, flash attention in every layer) at B=4 and B=32, the
-     latter profiled with row 9's share (both bodies, ``flash_attn*``); turbo classify of 256x256 RGB images at B=32 with and
+     latter profiled with row 9's share (both bodies, ``flash_attn*``) and
+     the GEMM's and LayerNorm's; turbo classify of 256x256 RGB images at B=32 with and
      without ``MMDX_INT8_FUSED_BLOCKS=1,2`` on the same int8 tower; the bf16
      image tower with ``use_fused_bottleneck`` against the cuDNN tower at
      B=32 on 224x224 inputs; ``preprocess_batch_fused`` against
@@ -192,10 +195,13 @@ def main() -> int:
         ops, total = profiled(f"greedy generate B={b}",
                               lambda: engine.generate_report_ids(*z, greedy=True), out_dir)
         decode_shares(f"greedy generate B={b}", ops, total, beam=False)
-    profiled("classify B=4", batches[4][0], out_dir)
+    ops, total = profiled("classify B=4", batches[4][0], out_dir)
+    text_shares("classify B=4", ops, total)
     for mode in ("fast", "turbo"):
-        ops, _ = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
+        ops, total = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
         conv_time(f"{mode} classify gray B=32", ops)
+        if mode == "fast":
+            text_shares("fast classify gray B=32", ops, total)
     long_text_and_fused_routes(bundle, turbo, rng, out_dir, torch.device("cuda", 0))
     log(f"tables in {out_dir}")
     return 0
@@ -233,6 +239,27 @@ def decode_shares(route: str, ops: dict, total: float, beam: bool, steps: int = 
         share(route, name, shares[name], total)
     if not all(ms > 0 for ms in shares.values()):
         log(f"FAIL: {route}: a kernel share reads 0 ms: {shares}")
+        sys.exit(1)
+
+
+# the text tower's kernels: the bf16 GEMM (gemm_bf16_kernel in older
+# checkouts), the attention core, the LayerNorm
+TEXT_KERNELS = {"GEMM (gemm_wgmma_kernel)": ("gemm_wgmma_kernel", "gemm_bf16_kernel"),
+                "attention core (bert_attn_kernel)": ("bert_attn_kernel",),
+                "LayerNorm (layernorm_f32_bf16_kernel)": ("layernorm_f32_bf16_kernel",)}
+
+
+def text_shares(route: str, ops: dict, total: float, core: bool = True) -> None:
+    """Log the GEMM's, the attention core's and the LayerNorm's shares of a
+    profiled classify; exit if the GEMM's (or, with ``core``, the core's)
+    reads 0 (a kernel renamed out of the match)."""
+    shares = {}
+    for name, keys in TEXT_KERNELS.items():
+        shares[name] = device_ms(ops, lambda k, keys=keys: any(n in k for n in keys))
+        share(route, name, shares[name], total)
+    needed = [n for n in TEXT_KERNELS if n.startswith("GEMM") or (core and "core" in n)]
+    if not all(shares[n] > 0 for n in needed):
+        log(f"FAIL: {route}: a text kernel share reads 0 ms: {shares}")
         sys.exit(1)
 
 
@@ -283,6 +310,7 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
             # both bodies: flash_attn_tc_kernel (bf16) and flash_attn_kernel
             share("fast classify long text L=512 B=32", "flash_attn kernels (row 9)",
                   device_ms(ops, lambda k: "flash_attn" in k), total)
+            text_shares("fast classify long text L=512 B=32", ops, total, core=False)
     del fast
 
     images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(32)]
