@@ -15,9 +15,13 @@ Phases (any failure exits nonzero):
      runs (CUDA events), the least time the card could take for the same
      work, and for the bf16 cache read and flash attention the time of the
      library call of the same function (scaled_dot_product_attention); for
-     K3, K4 and rows 5, 7 and 9 (and the library call) also the device time
-     per call from a CUDA graph of 20 calls, which leaves out the wrapper's
-     host time; rows 5 and 7 also against their plain version's bits
+     K3, K4, K5 (every site, with TOP/s, GB/s and torch._int_mm's time for
+     the product alone), K6, K7 and rows 5, 7 and 9 (and the library call)
+     also the device time per call from a CUDA graph of 20 calls, which
+     leaves out the wrapper's host time; each dequantizing epilogue of the
+     int8 GEMM under K6 and K7 bit-equal to its plain epilogue (tanh-GELU
+     within ATOL/RTOL); K6 and K7 at M = 384, 3072 and 16384 with the share
+     of their bf16 outputs off the plain bits; rows 5 and 7 also against their plain version's bits
      (BITS_SHARE, BITS_ULP), K4 with the share of its bf16 outputs off the
      plain version's bits and bit-equal over two launches (deterministic
      split-K); row 9 fails unless each shape ran the body its rule names;
@@ -34,7 +38,8 @@ Phases (any failure exits nonzero):
        of 4; the same batch in parity mode for comparison;
        turbo: the int8 image tower and the W8A8 text blocks, calibrating on
        its first batch: infer on a gray image, classify_batch on 4 gray and
-       on 4 RGB images, generate for both; the turbo-vs-fast gap;
+       on 4 RGB images, generate for both; the turbo-vs-fast gap within
+       TURBO_GAP;
        decode variants: fast greedy at B=4 and B=64, beam-4 with
        MMDX_DEFER_KV=0, an MMDX_KV_INT8=1 MMDX_FUSED_LM_HEAD=1 engine under
        beam-4 and greedy, the fused-lm-head greedy against the dense one;
@@ -91,6 +96,9 @@ TEXT_BITS_SHARE, TEXT_BITS_ULP = 0.05, None
 # rows 10 and 11: f32 logits of bf16 products summed over D = 512 on the
 # tensor cores and in the plain f32 product: summation order only
 DEC_TOL = 1e-4
+# turbo against fast mode: the JAX package's turbo guard
+# (tests/test_resnet_int8.py:297) on the probabilities
+TURBO_GAP = 0.05
 # row 17: f32 sums of the same terms in another order (the kernel's banded
 # FMAs, the plain version's dense f32 matmuls) on outputs of magnitude < 3
 PRE_ATOL, PRE_RTOL = 1e-4, 1e-5
@@ -284,7 +292,7 @@ def phase_kernels(device) -> dict:
     """-> {name: (max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
     import torch
 
-    from mmdx_tpu_torch.ops import beam_attn, bert_attn, fused_ffn, t5_step
+    from mmdx_tpu_torch.ops import beam_attn, t5_step
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
     bf = torch.bfloat16
@@ -299,38 +307,13 @@ def phase_kernels(device) -> dict:
 
     out = {}
 
-    # K1 / K2 at the main path's rows; K6 / K7 below on K1's and K2's
-    # inputs at B=32, L=96
-    text, (x, kmask, wqkv, bqkv, wo, bo, lns, lnb, wi, bi, wf, bf_) = \
+    # K1 / K2 at the main path's rows; K6 / K7 on their weights, quantized once
+    text, (_, _, wqkv, bqkv, wo, bo, lns, lnb, wi, bi, wf, bf_) = \
         phase_text_kernels(device, g)
     out.update(text)
-    b, l, h, heads, f = 32, 96, 768, 12, 3072
-    m = b * l
-    kw = dict(seq_len=l, num_heads=heads, eps=1e-12)
-    attn_ops = 2 * 2 * b * heads * l * l * (h // heads)  # scores + context
-
-    # K6 / K7: the W8A8 forms at the same shapes, weights quantized once
-    wqkv_q, wo_q = fused_ffn.quant_weight_cols(wqkv), fused_ffn.quant_weight_cols(wo)
-    wi_q, wf_q = fused_ffn.quant_weight_cols(wi), fused_ffn.quant_weight_cols(wf)
-    attn8 = (x, kmask, *wqkv_q, bqkv, *wo_q, bo, lns, lnb)
-    log(f"K7 fused_attention_block_int8: x [{m}, {h}] bf16, int8 weights")
-    err = compare("K7", bert_attn.fused_attention_block_int8(*attn8, **kw),
-                  bert_attn.fused_attention_block_int8_plain(*attn8, **kw))
-    ms, pms = timed("K7", lambda: bert_attn.fused_attention_block_int8(*attn8, **kw),
-                    lambda: bert_attn.fused_attention_block_int8_plain(*attn8, **kw))
-    nbytes = 2 * 2 * m * h + 4 * h * h + 4 * 4 * h + 2 * (3 * h + 3 * h) + 4 * m
-    out["bert_attn_int8"] = (err, ms, pms) + bound(
-        nbytes, int8_ops=2 * m * h * 4 * h, bf16_ops=attn_ops)
-
-    ffn8 = (x, *wi_q, bi, *wf_q, bf_, lns, lnb)
-    log(f"K6 fused_ffn_ln_int8: x [{m}, {h}] x [{h}, {f}] x [{f}, {h}], int8 weights")
-    err = compare("K6", fused_ffn.fused_ffn_ln_int8(*ffn8, eps=1e-12),
-                  fused_ffn.fused_ffn_ln_int8_plain(*ffn8, eps=1e-12))
-    ms, pms = timed("K6", lambda: fused_ffn.fused_ffn_ln_int8(*ffn8, eps=1e-12),
-                    lambda: fused_ffn.fused_ffn_ln_int8_plain(*ffn8, eps=1e-12))
-    nbytes = 2 * 2 * m * h + 2 * h * f + 4 * (f + h) + 2 * (f + 3 * h)
-    out["fused_ffn_int8"] = (err, ms, pms) + bound(nbytes, int8_ops=2 * 2 * m * h * f)
-
+    out.update(phase_int8_text_blocks(device, g, (wqkv, bqkv, wo, bo, lns, lnb, wi, bi,
+                                                  wf, bf_)))
+    phase_dequant_epilogues(device, g)
     out["int8_gemm"] = phase_int8_gemm(device, g)
 
     # K3: beam self-attention partials, 8 heads, Lmax=181 -> K=724: B=8 (the
@@ -798,12 +781,69 @@ def phase_route_kernels(device, g) -> dict:
     return out
 
 
+def int_mm_ms(x, w_t):
+    """Device ms of ``torch._int_mm`` (cuBLASLt s8 -> s32) on ``x [M, K]``
+    and the K-major ``w_t [N, K]``: the product alone, the int8 GEMM's
+    yardstick (no epilogue; never on the main path); None where it refuses
+    the shape."""
+    import torch
+
+    try:
+        torch._int_mm(x, w_t.t())
+        return graph_ms(lambda: torch._int_mm(x, w_t.t()))
+    except RuntimeError:
+        return None
+
+
+def fmt_ms(t) -> str:
+    return "n/a" if t is None else f"{t * 1e3:.2f} us"
+
+
+# K5 at the int8 tower's shapes at B=32 (and the gray stem at B=512, the
+# turbo headline batch): name, M, K (unpadded), N, epilogue, K of the
+# second product
+K5_SITES = (
+    ("layer1 conv1 1x1 (ReLU)", 56 * 56 * 32, 256, 64, "relu", 0),
+    ("layer1 conv2 3x3 im2col (ReLU)", 56 * 56 * 32, 9 * 64, 64, "relu", 0),
+    ("gray stem 7x7 im2col, positional bias (ReLU)", 112 * 112 * 32, 49, 64, "relu_map", 0),
+    ("gray stem at B=512, positional bias (ReLU)", 112 * 112 * 512, 49, 64, "relu_map", 0),
+    ("RGB stem 7x7 im2col (ReLU)", 112 * 112 * 32, 147, 64, "relu", 0),
+    ("layer4 conv2 3x3 im2col (ReLU)", 49 * 32, 9 * 512, 512, "relu", 0),
+    ("layer4 shortcut 1x1 (no ReLU)", 49 * 32, 1024, 2048, "plain", 0),
+    ("layer4 conv3 1x1 + residual (ReLU)", 49 * 32, 512, 2048, "res", 0),
+    ("layer4 conv3 + shortcut, dual (ReLU)", 49 * 32, 512, 2048, "dual", 1024),
+)
+
+
+def k5_call(k5, epi, x, w, alpha, s8, scales, vec, k2=0, k_major=True, s_out=0.37):
+    """(wrapper, plain version, arguments) of the K5 site with epilogue
+    ``epi`` on ``x [M, K]`` and the weight ``w`` ([N, K], or [K, N] in a
+    checkout older than the K-major layout: ``k_major=False``); the
+    residual, the second product and the bias are drawn with ``s8``,
+    ``scales``, ``vec`` (a [112 * 112, N] positional bias for "relu_map").
+    ``relu`` is the wrappers' keyword: every epilogue but "plain" takes it
+    True."""
+    m, n = x.shape[0], alpha.shape[0]
+    bias = vec(112 * 112, n) if epi == "relu_map" else vec(n)
+    if epi == "res":
+        return (k5.int8_gemm_res_requant, k5.int8_gemm_res_requant_plain,
+                (x, w, alpha, bias, s8(m, n), 0.011, s_out))
+    if epi == "dual":
+        w2 = s8(n, k2) if k_major else s8(k2, n)
+        return (k5.int8_gemm_dual_requant, k5.int8_gemm_dual_requant_plain,
+                (x, w, alpha, bias, s8(m, k2), w2, scales(n), vec(n), s_out))
+    return k5.int8_gemm_requant, k5.int8_gemm_requant_plain, (x, w, alpha, bias, s_out)
+
+
 def phase_int8_gemm(device, g):
     """K5 at the int8 tower's shapes at B=32, each epilogue, and the gray stem
-    at B=512 (the turbo headline batch: 100,352 row tiles), bit-equal to the
-    plain version. The stems' K is zero-padded to a multiple of 16, as the
-    tower pads its weights and im2col columns. -> the record of the layer1
-    conv1 site."""
+    at B=512 (the turbo headline batch: 50,176 row tiles), bit-equal to the
+    plain version; per site the time per call (CUDA events), the device time
+    per call (CUDA graph of 20), TOP/s and GB/s from it, and the device time
+    of ``torch._int_mm`` on the same operands (the product alone). The
+    weights are K-major [N, K], as the tower stores them; the stems' K is
+    zero-padded to a multiple of 16, as the tower pads its weights and
+    im2col columns. -> the record of the layer1 conv1 site."""
     import torch
 
     from mmdx_tpu_torch.ops import int8_gemm as k5
@@ -817,55 +857,153 @@ def phase_int8_gemm(device, g):
     def vec(*shape):
         return torch.randn(*shape, generator=g).to(device)
 
-    def padded(x, w):  # zero columns of x, zero rows of w up to K % 16 == 0
+    def padded(x, w):  # zero columns of x and of w [N, K] up to K % 16 == 0
         pad = -x.shape[1] % k5.K_ALIGN
         return (torch.cat([x, x.new_zeros((x.shape[0], pad))], 1),
-                torch.cat([w, w.new_zeros((pad, w.shape[1]))], 0))
+                torch.cat([w, w.new_zeros((w.shape[0], pad))], 1))
 
-    b = 32
-    sites = [  # name, M, K, N, epilogue, K of the second product
-        ("layer1 conv1 1x1 (ReLU)", 56 * 56 * b, 256, 64, "relu", 0),
-        ("layer1 conv2 3x3 im2col (ReLU)", 56 * 56 * b, 9 * 64, 64, "relu", 0),
-        ("gray stem 7x7 im2col, positional bias (ReLU)", 112 * 112 * b, 49, 64,
-         "relu_map", 0),
-        ("gray stem at B=512, positional bias (ReLU)", 112 * 112 * 512, 49, 64,
-         "relu_map", 0),
-        ("RGB stem 7x7 im2col (ReLU)", 112 * 112 * b, 147, 64, "relu", 0),
-        ("layer4 shortcut 1x1 (no ReLU)", 49 * b, 1024, 2048, "plain", 0),
-        ("layer4 conv3 1x1 + residual (ReLU)", 49 * b, 512, 2048, "res", 0),
-        ("layer4 conv3 + shortcut, dual (ReLU)", 49 * b, 512, 2048, "dual", 1024),
-    ]
     record = None
-    for name, m, k, n, epi, k2 in sites:
-        x, w, alpha = *padded(s8(m, k), s8(k, n)), scales(n)
+    for name, m, k, n, epi, k2 in K5_SITES:
+        x, w, alpha = *padded(s8(m, k), s8(n, k)), scales(n)
         k = x.shape[1]
-        bias = vec(112 * 112, n) if epi == "relu_map" else vec(n)
-        relu, s_out = epi != "plain", 0.37
-        nbytes, ops = m * k + k * n + 4 * n + 4 * bias.numel() + m * n, 2 * m * k * n
+        fn, plain, args = k5_call(k5, epi, x, w, alpha, s8, scales, vec, k2)
+        nbytes, ops = m * k + k * n + 4 * n + 4 * args[3].numel() + m * n, 2 * m * k * n
+        relu = epi != "plain"
         if epi == "res":
-            args = (x, w, alpha, bias, s8(m, n), 0.011, s_out)
-            fn, plain = k5.int8_gemm_res_requant, k5.int8_gemm_res_requant_plain
             nbytes += m * n
         elif epi == "dual":
-            args = (x, w, alpha, bias, s8(m, k2), s8(k2, n), scales(n), vec(n), s_out)
-            fn, plain = k5.int8_gemm_dual_requant, k5.int8_gemm_dual_requant_plain
             nbytes += m * k2 + k2 * n + 8 * n
             ops += 2 * m * k2 * n
-        else:
-            args = (x, w, alpha, bias, s_out)
-            fn, plain = k5.int8_gemm_requant, k5.int8_gemm_requant_plain
-        log(f"K5 {fn.__name__}: {name}: M={m}, K={k}{'+' + str(k2) if k2 else ''}, N={n}")
+        plan = k5.int8_gemm_plan(m, n, k, k5.sms_of(x), k2)
+        log(f"K5 {fn.__name__}: {name}: M={m}, K={k}{'+' + str(k2) if k2 else ''}, N={n}, "
+            f"plan (bm, bn, stages) {plan}")
         err = compare_exact(f"K5 {name}", fn(*args, relu=relu), plain(*args, relu=relu))
         ms = median_ms(lambda: fn(*args, relu=relu))
         pms = median_ms(lambda: plain(*args, relu=relu))
+        gms = graph_ms(lambda: fn(*args, relu=relu))
+        lib = int_mm_ms(x, w)
         bms, by = bound(nbytes, int8_ops=ops)
-        log(f"  K5 kernel {ms:.4f} ms, plain {pms:.4f} ms (median of 30); bound "
-            f"{bms:.4f} ms ({by}); achieved {ops / ms / 1e9:.1f} TOP/s, "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
+        log(f"  K5 kernel {ms:.4f} ms, device {gms:.4f} ms (CUDA graph of 20), plain "
+            f"{pms:.4f} ms; bound {bms:.4f} ms ({by}); achieved {ops / gms / 1e9:.1f} TOP/s, "
+            f"{nbytes / gms / 1e6:.1f} GB/s; torch._int_mm (product alone) {fmt_ms(lib)}")
         if record is None:
             record = (err, ms, pms, bms, by)
     k5.reset_launches()
     return record
+
+
+# the four text projections at BERT-base widths, each with its block's
+# dequantizing epilogue: (name, N, K, epilogue)
+TEXT_PROJECTIONS = (("attn_qkv", 2304, 768, "DQ_BF16"),
+                    ("attn_out", 768, 768, "DQ_RESID_BIAS_F32"),
+                    ("ffn_in", 3072, 768, "DQ_GELU_TANH_F32"),
+                    ("ffn_out", 768, 3072, "DQ_BIAS_RESID_F32"))
+
+
+def phase_dequant_epilogues(device, g) -> None:
+    """Each of ``gemm_dequant``'s four epilogues at its text projection, at a
+    ragged M = 144 and at the classify rows M = 3072, against the plain
+    epilogue over ``exact_matmul_s8`` (``gemm_dequant_plain``): bit-equal,
+    but tanh-GELU within ATOL/RTOL (tanhf is each library's own); the
+    device time of each launch (CUDA graph of 20) beside ``torch._int_mm``
+    on the same operands."""
+    import torch
+
+    from mmdx_tpu_torch import _build
+    from mmdx_tpu_torch.ops import int8_gemm as k5
+
+    for m in (144, 3072):
+        parts = []
+        for name, n, k, epi_name in TEXT_PROJECTIONS:
+            epi = getattr(_build, epi_name)
+            x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(device)
+            w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(device)
+            rs = (1e-3 + 1e-2 * torch.rand(m, generator=g)).to(device)
+            cs = (1e-4 + 1e-3 * torch.rand(n, generator=g)).to(device)
+            bias = (torch.randn(n, generator=g) * 0.1).to(device, torch.bfloat16)
+            resid = torch.randn(m, n, generator=g).to(device, torch.bfloat16)
+            resid = None if epi in (_build.DQ_BF16, _build.DQ_GELU_TANH_F32) else resid
+            out_dtype = torch.bfloat16 if epi == _build.DQ_BF16 else torch.float32
+            args = (x, w, rs, cs, bias, resid, out_dtype, epi)
+            got, ref = k5.gemm_dequant(*args), k5.gemm_dequant_plain(*args)
+            label = f"gemm_dequant {epi_name} ({name}) M={m}"
+            if epi == _build.DQ_GELU_TANH_F32:
+                compare(label, got, ref)
+                n_off = int((got != ref).sum())
+                log(f"  {label}: {n_off} of {got.numel()} outputs ({n_off / got.numel():.4%}) "
+                    f"off the plain bits (tanhf)")
+            elif not torch.equal(got, ref):
+                fail(f"{label}: {int((got != ref).sum())} outputs differ from the plain "
+                     f"epilogue's bits")
+            else:
+                log(f"  {label}: bit-equal to the plain epilogue ({got.numel()} outputs)")
+            t = graph_ms(lambda: k5.gemm_dequant(*args))
+            parts.append(f"{name} [{m}x{k}]x[{k}x{n}] plan {k5.int8_gemm_plan(m, n, k)}: "
+                         f"{t * 1e3:.2f} us ({2 * m * n * k / t / 1e9:.0f} TOP/s), "
+                         f"torch._int_mm {fmt_ms(int_mm_ms(x, w))}")
+        log(f"  int8 projections M={m}, device time per launch (CUDA graph of 20): "
+            + "; ".join(parts))
+
+
+# K6 and K7 at one request's rows of B=4 (M=384), the classify rows (B=32
+# L=96, M=3072, the record) and M=16384 (K6 at long text's B=32 L=512, K7 at
+# its longest L=128 with B=128)
+INT8_TEXT_SHAPES = ((4, 96, 4, 96), (32, 96, 32, 96), (32, 512, 128, 128))
+
+
+def phase_int8_text_blocks(device, g, weights) -> dict:
+    """K6 and K7 at INT8_TEXT_SHAPES against their plain versions
+    (ATOL/RTOL), the share of their bf16 outputs off the plain bits
+    (informative: a tanhf or summation-order flip of one int8 intermediate
+    moves its whole row), the time per call, the device time per call (CUDA
+    graph of 20) and the plain version's time. -> records at M = 3072."""
+    import torch
+
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn
+
+    bf = torch.bfloat16
+    wqkv, bqkv, wo, bo, lns, lnb, wi, bi, wf, bf_ = weights
+    h, heads, f = 768, 12, 3072
+    wqkv_q, wo_q = fused_ffn.quant_weight_cols(wqkv), fused_ffn.quant_weight_cols(wo)
+    wi_q, wf_q = fused_ffn.quant_weight_cols(wi), fused_ffn.quant_weight_cols(wf)
+    out = {}
+    for fb, fl, ab, al in INT8_TEXT_SHAPES:
+        runs = []
+        m = fb * fl
+        x = torch.randn(m, h, generator=g).to(device, bf)
+        ffn8 = (x, *wi_q, bi, *wf_q, bf_, lns, lnb)
+        nbytes = 2 * 2 * m * h + 2 * h * f + 4 * (f + h) + 2 * (f + 3 * h)
+        runs.append(("K6", "fused_ffn_int8", f"fused_ffn_ln_int8 x [{m}, {h}] (B={fb} L={fl})",
+                     lambda: fused_ffn.fused_ffn_ln_int8(*ffn8, eps=1e-12),
+                     lambda: fused_ffn.fused_ffn_ln_int8_plain(*ffn8, eps=1e-12),
+                     bound(nbytes, int8_ops=2 * 2 * m * h * f)))
+        ma = ab * al
+        xa = x if ma == m else torch.randn(ma, h, generator=g).to(device, bf)
+        lens = torch.randint(min(8, al), al + 1, (ab,), generator=g)
+        kmask = torch.where(torch.arange(al)[None, :] < lens[:, None], 0.0, -1e9)
+        kmask = kmask.reshape(ma).to(device=device, dtype=torch.float32)
+        kw = dict(seq_len=al, num_heads=heads, eps=1e-12)
+        attn8 = (xa, kmask, *wqkv_q, bqkv, *wo_q, bo, lns, lnb)
+        nbytes = 2 * 2 * ma * h + 4 * h * h + 4 * 4 * h + 2 * (3 * h + 3 * h) + 4 * ma
+        runs.append(("K7", "bert_attn_int8",
+                     f"fused_attention_block_int8 x [{ma}, {h}] (B={ab} L={al})",
+                     lambda: bert_attn.fused_attention_block_int8(*attn8, **kw),
+                     lambda: bert_attn.fused_attention_block_int8_plain(*attn8, **kw),
+                     bound(nbytes, int8_ops=2 * ma * h * 4 * h,
+                           bf16_ops=2 * 2 * ab * heads * al * al * (h // heads))))
+        for kname, name, what, kernel, plain, (bms, by) in runs:
+            log(f"{kname} {what}, int8 weights")
+            got, ref = kernel(), plain()
+            mm = got.shape[0]
+            err = compare(f"{kname} M={mm}", got, ref)
+            n_off = int((got != ref).sum())
+            ms, pms, gms = median_ms(kernel), median_ms(plain), graph_ms(kernel)
+            log(f"  {kname} M={mm}: {n_off} of {got.numel()} bf16 outputs "
+                f"({n_off / got.numel():.3%}) off the plain bits; kernel {ms:.4f} ms, device "
+                f"{gms:.4f} ms (CUDA graph of 20), plain {pms:.4f} ms; bound {bms:.4f} ms ({by})")
+            if mm == 3072:
+                out[name] = (err, ms, pms, bms, by, None)
+    return out
 
 
 def launch_counters() -> dict:
@@ -1067,8 +1205,12 @@ def phase_turbo(device, bundle, images, counters, fast, fast_probs):
     log(f"  turbo launch counts as expected: 53 per classify (K5), {layers} per "
         f"classify (K6, K7), {dec_layers} per decode step over {steps} steps (K3, K4)")
     fast_gray, _, _ = fast.classify_batch(gray, TEXTS)
-    log(f"  max |prob turbo - fast|: RGB {float(np.abs(results['RGB'] - fast_probs).max()):.4f}, "
-        f"gray {float(np.abs(results['gray'] - fast_gray).max()):.4f} (informative)")
+    gaps = {"RGB": float(np.abs(results["RGB"] - fast_probs).max()),
+            "gray": float(np.abs(results["gray"] - fast_gray).max())}
+    log(f"  max |prob turbo - fast|: RGB {gaps['RGB']:.4f}, gray {gaps['gray']:.4f} "
+        f"(bar 0.05, the JAX package's turbo guard)")
+    if max(gaps.values()) > TURBO_GAP:
+        fail(f"turbo probabilities differ from fast mode's by more than {TURBO_GAP}: {gaps}")
     return launches, turbo
 
 

@@ -5,9 +5,9 @@ Every ``mmdx_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
 with ``ctypes``. The library is built at first use into
 ``mmdx_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of the
 sources, so an edited source rebuilds and a fresh checkout builds by itself.
-The link needs no ``libcuda``: the one driver-API call, the GEMM's
+The link needs no ``libcuda``: the one driver-API call, the GEMMs'
 ``cuTensorMapEncodeTiled`` (TMA descriptors), is resolved at run time
-through ``cudaGetDriverEntryPoint`` (``csrc/gemm.cu``).
+through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).
 
 Each entry point enqueues one kernel on the stream it is given and returns
 the launch's ``cudaError_t``; :func:`check` turns a nonzero code into an
@@ -48,12 +48,16 @@ SIGNATURES = {
     "mmdx_t5_cross_ffn": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # qkv, kmask, ctx (f32), B, L, H, heads, query tile, scale, stream
     "mmdx_bert_attn_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # A, B, alpha, bias, bias_rows, res, rs, A2, B2, alpha2, bias2, K2,
-    # s_out, relu, C, M, N, K, stream
+    # B (K-major s8 [N, K]), N, K, bn, map (128 bytes out)
+    "mmdx_int8_weight_map": [_P, _I, _I, _I, _P],
+    # A, B's map, alpha, bias, bias_rows, res, rs, A2, B2's map, alpha2,
+    # bias2, K2, s_out, relu, C, M, N, K, bm, bn, stages, stream
     "mmdx_int8_gemm_requant": [_P, _P, _P, _P, _I, _P, _F, _P, _P, _P, _P, _I,
-                               _F, _I, _P, _I, _I, _I, _P],
-    # A, B, row_scale, col_scale, bias, resid, C, M, N, K, epilogue, stream
-    "mmdx_int8_gemm_dequant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                               _F, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    # A, B's map, row_scale, col_scale, bias, resid, C, M, N, K, epilogue,
+    # bm, bn, stages, stream
+    "mmdx_int8_gemm_dequant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     # x, q, scale, M, H, stream
     "mmdx_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
     "mmdx_quant_rows_f32": [_P, _P, _P, _I, _I, _P],

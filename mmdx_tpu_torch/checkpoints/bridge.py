@@ -32,7 +32,7 @@ import torch
 from mmdx_tpu_torch.config import DISEASES, DiagnosisConfig
 from mmdx_tpu_torch.models.diagnosis import DiagnosisModel
 from mmdx_tpu_torch.models.resnet import RESNET50_STAGES
-from mmdx_tpu_torch.models.resnet_int8 import gemm_weight
+from mmdx_tpu_torch.models.resnet_int8 import gemm_weight, hwio_view
 
 ASSETS = Path(__file__).resolve().parents[2] / "mmdx_tpu" / "assets"
 
@@ -259,12 +259,14 @@ def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> Tor
 def qparams_from_jax(q: dict) -> dict:
     """The JAX ``resnet_int8.quantize_backbone`` tree, as numpy leaves, ->
     the port's qparams (``models/resnet_int8.quantize_backbone``'s layout):
-    the same int8 HWIO weights (and their GEMM operand ``wk``), f32 scales
-    and biases as CPU tensors, the activation scales as floats; the TPU's
-    space-to-depth weights (``w_s2d``) are dropped."""
+    the same int8 HWIO weights as a view of their K-major GEMM operand
+    ``wk [co, K]`` (laid out once, here), f32 scales and biases as CPU
+    tensors, the activation scales as floats; the TPU's space-to-depth
+    weights (``w_s2d``) are dropped."""
     def conv(d):
         out = {k: torch.from_numpy(np.array(v)) for k, v in d.items() if k != "w_s2d"}
         out["wk"] = gemm_weight(out["w"])
+        out["w"] = hwio_view(out["wk"], out["w"].shape)
         return out
 
     out = {"scales": {k: float(np.float32(v)) for k, v in q["scales"].items()}}

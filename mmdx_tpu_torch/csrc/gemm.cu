@@ -40,11 +40,10 @@
 // resid); and an f32 split-K partial [split, M, N] without bias, which the
 // LayerNorm kernel below sums in split order, then adds bias and residual,
 // so split-K is deterministic and needs no atomics.
-#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point is resolved at run time
-
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors, cuTensorMapEncodeTiled
 
 namespace {
 
@@ -59,76 +58,11 @@ constexpr int BK = 64;               // one 128-byte swizzle row of bf16
 constexpr int BOX = 64 * BK * 2;     // one 64 x 64 bf16 TMA box, 8 KB
 constexpr size_t MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
 
-// ---------------------------------------------------------------------------
-// mbarrier, TMA and wgmma primitives
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// Wait until the phase of parity `parity` has completed. A barrier that no
-// arrival completes within ~10 s of polling (a wrong phase or byte count)
-// traps, so a fault shows as a failed launch and not as a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  unsigned done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > 20000000000ll) __trap();
-  }
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), layout 1.
-// K-major A: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); a
-// 16-deep K step is 32 bytes along the row (LBO unused). MN-major B: each
-// 64-column box holds 64 K rows of 128 bytes; 8-row K groups are 1024 bytes
-// apart (SBO), 64-column boxes BOX bytes apart (LBO); a K step is 16 rows.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, unsigned lbo, unsigned sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
-         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator registers across the async MMAs
-template <int R>
-__device__ __forceinline__ void fence_operands(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
+// B is read MN-major (wgmma_desc in hopper.cuh covers the K-major A): each
+// 64-column box holds 64 K rows of 128 bytes; 8-row K groups are 1024
+// bytes apart (SBO), 64-column boxes BOX bytes apart (LBO); a K step is 16
+// rows.
+//
 // d += A (64 x 16, K-major) * B (16 x BN, MN-major: imm-trans-b = 1), f32
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -181,9 +115,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
 __host__ __device__ constexpr int ring_bytes(int bm, int bn, int stages) {
   return stages * (bm + bn) * BK * 2 > bm * (bn * 4 + 16) ? stages * (bm + bn) * BK * 2
                                                            : bm * (bn * 4 + 16);
-}
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ float gelu_erf(float u) {
@@ -400,39 +331,10 @@ __global__ void layernorm_f32_bf16_kernel(const float* __restrict__ y, int split
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: resolved once through the
-// runtime, so the library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major bf16 [rows, cols] matrix read in boxes of [box_rows, 64]
 // columns, 128-byte swizzle, zeros past its edges
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return make_map_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows, cols, box_rows, 64);
 }
 
 constexpr size_t smem_bytes(int bm, int bn, int stages) {

@@ -67,7 +67,8 @@ class BertLayer(nn.Module):
         self.ffn_ln = LayerNorm(h, cfg.layer_norm_eps)
 
     def quantize_int8_(self) -> None:
-        """Per-column int8 forms of the four projection weights (W8A8)."""
+        """Per-column int8 forms of the four projection weights (W8A8), laid
+        out K-major ([out, in]) once, as the int8 GEMM reads them."""
         self.int8 = {k: fused_ffn.quant_weight_cols(getattr(self, k).kernel)
                      for k in ("attn_qkv", "attn_out", "ffn_in", "ffn_out")}
 

@@ -30,7 +30,8 @@ in the engine, ``resnet_int8.py:415-440``) runs each stride-1 identity block
 (``ops/int8_bottleneck.py``, Queue 2 row 13) from its folded requant chain:
 with ``1,2`` that is stage 1 blocks 1-2 and stage 2 blocks 1-3.
 
-Layouts follow the JAX package: NHWC activations, HWIO int8 weights.
+Layouts follow the JAX package: NHWC activations, HWIO int8 weights ("w"),
+each a view of its K-major GEMM operand ("wk" [co, K], the one copy).
 """
 from __future__ import annotations
 
@@ -162,20 +163,31 @@ def _gray_stem(w_hwio, b, mean, std, img_size: int):
 
 
 def gemm_weight(w_hwio) -> torch.Tensor:
-    """s8 HWIO weights -> the GEMM operand [K, co]: K = kh*kw*ci rows in
-    the im2col column order, zero-padded to a multiple of K_ALIGN (the
-    stems: 147 -> 160, 49 -> 64), else a view of ``w_hwio``."""
-    w2 = w_hwio.reshape(-1, w_hwio.shape[-1])
-    pad = -w2.shape[0] % K_ALIGN
-    return F.pad(w2, (0, 0, 0, pad)) if pad else w2
+    """s8 HWIO weights -> the GEMM operand, K-major ``[co, K]`` and
+    contiguous: K = kh*kw*ci columns in the im2col column order, zero-padded
+    to a multiple of K_ALIGN (the stems: 147 -> 160, 49 -> 64). The kernel's
+    ``wgmma`` reads 8-bit operands K-major only, so this is laid out once,
+    at quantization."""
+    w2 = w_hwio.reshape(-1, w_hwio.shape[-1]).T
+    return F.pad(w2, (0, -w2.shape[1] % K_ALIGN)).contiguous()
+
+
+def hwio_view(wk, shape) -> torch.Tensor:
+    """The HWIO weights ``shape`` (kh, kw, ci, co) as a view of their GEMM
+    operand ``wk [co, K]`` (no copy: the qparams keep one copy of each
+    weight)."""
+    kh, kw, ci, co = shape
+    return wk[:, :kh * kw * ci].T.reshape(kh, kw, ci, co)
 
 
 def _qconv(w_hwio, b) -> dict:
     ws = div_exact(torch.clamp_min(w_hwio.abs().amax(dim=(0, 1, 2)), 1e-12), 127.0)
-    wi = torch.clamp(torch.round(w_hwio / ws), -127, 127).to(torch.int8).contiguous()
-    # contiguous, as the GEMM kernel takes them (the gray stem's map comes
-    # out of a permute)
-    return {"w": wi, "wk": gemm_weight(wi), "ws": ws.contiguous(), "b": b.contiguous()}
+    wi = torch.clamp(torch.round(w_hwio / ws), -127, 127).to(torch.int8)
+    wk = gemm_weight(wi)
+    # contiguous where the kernel takes them (the gray stem's map comes out
+    # of a permute); "w" is the HWIO view of "wk"
+    return {"w": hwio_view(wk, wi.shape), "wk": wk, "ws": ws.contiguous(),
+            "b": b.contiguous()}
 
 
 def act_scale(amax: float) -> float:
@@ -187,9 +199,9 @@ def act_scale(amax: float) -> float:
 def quantize_backbone(folded: dict, act_scales: dict[str, float], mean=None,
                       std=None, img_size: int = 224) -> dict:
     """The int8 qparams from the folded f32 stack and the calibrated amax:
-    per conv {"w": s8 HWIO, "wk": its GEMM operand (``gemm_weight``), "ws":
-    f32 [co], "b": f32 [co]}, the gray stem (its "b" the positional map), and
-    {"scales": {site: f32 step}}."""
+    per conv {"w": s8 HWIO (a view of "wk"), "wk": its K-major GEMM operand
+    [co, K] (``gemm_weight``), "ws": f32 [co], "b": f32 [co]}, the gray stem
+    (its "b" the positional map), and {"scales": {site: f32 step}}."""
     missing = [s for s in calibration_sites() if s not in act_scales]
     if missing:
         raise ValueError(f"act_scales missing calibration sites: {missing[:4]}")
@@ -258,7 +270,7 @@ def _conv_s8(xi, qc, sx, s_out, stride: int, relu: bool = True, res=None, rs=Non
         b, ho, wo, cin = xi.shape
         cols = xi.reshape(b * ho * wo, cin)
     else:
-        cols, ho, wo = im2col_s8(xi, kh, stride, (kh - 1) // 2, wk.shape[0])
+        cols, ho, wo = im2col_s8(xi, kh, stride, (kh - 1) // 2, wk.shape[1])
     bias = qc["b"].reshape(-1, co) if qc["b"].dim() > 1 else qc["b"]
     if res is None:
         out = int8_gemm_requant(cols, wk, alpha, bias, s_out, relu=relu)

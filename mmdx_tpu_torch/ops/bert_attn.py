@@ -157,25 +157,23 @@ def fused_attention_block_int8_plain(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8, wos,
     per-row int8 x, exact s32 QKV product dequantized and rounded to x.dtype,
     the attention core with an f32 context, per-row int8 context, exact s32
     out-projection, f32 residual and LayerNorm."""
-    from mmdx_tpu_torch.ops.int8_gemm import exact_matmul_s8
+    from mmdx_tpu_torch.ops.int8_gemm import gemm_dequant_plain
 
-    dt = x.dtype
-    xf = x.to(F32)
-    xi, sx = quant_rows(xf)
-    qkv = (exact_matmul_s8(xi, wqkv_i8) * (sx[:, None] * wqkvs) + bqkv.to(F32)).to(dt)
+    xi, sx = quant_rows(x.to(F32))
+    qkv = gemm_dequant_plain(xi, wqkv_i8, sx, wqkvs, bqkv, None, x.dtype, _build.DQ_BF16)
     ctx = attention_ctx_f32(qkv, kmask, seq_len, num_heads)
     ci, sc = quant_rows(ctx)
-    y = xf + exact_matmul_s8(ci, wo_i8) * (sc[:, None] * wos) + bo.to(F32)
-    return layer_norm_f32(y, ln_scale, ln_bias, eps).to(dt)
+    y = gemm_dequant_plain(ci, wo_i8, sc, wos, bo, x, F32, _build.DQ_RESID_BIAS_F32)
+    return layer_norm_f32(y, ln_scale, ln_bias, eps).to(x.dtype)
 
 
 def fused_attention_block_int8(x, kmask, wqkv_i8, wqkvs, bqkv, wo_i8, wos, bo,
                                ln_scale, ln_bias, seq_len: int, num_heads: int,
                                eps: float = 1e-12):
     """W8A8 attention block, ``fused_attention_block(int8_matmuls=True)`` with
-    the weights quantized once by ``quant_weight_cols``: wqkv_i8 s8 [H, 3H],
-    wqkvs f32 [3H], wo_i8 s8 [H, H], wos f32 [H]; the rest as
-    ``fused_attention_block``.
+    the weights quantized once by ``quant_weight_cols``: wqkv_i8 s8 [3H, H]
+    (K-major), wqkvs f32 [3H], wo_i8 s8 [H, H] (K-major), wos f32 [H]; the
+    rest as ``fused_attention_block``.
 
     Kernel (CUDA C++, ``csrc/int8_gemm.cu`` + ``csrc/bert_attn.cu`` +
     ``csrc/gemm.cu``), six launches: row-quantize x; the int8 core with the

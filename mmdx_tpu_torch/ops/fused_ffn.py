@@ -95,13 +95,17 @@ def quant_rows(x):
 
 def quant_weight_cols(w):
     """Per-output-column symmetric int8 weights (``pallas_ffn.quant_weight_cols``):
-    w [in, out] -> (s8 [in, out], f32 [out] scales), from ``w`` as given (the
-    JAX blocks quantize the weights cast to the model dtype)."""
+    w [in, out] -> (s8 [out, in] K-major and contiguous, f32 [out] scales),
+    from ``w`` as given (the JAX blocks quantize the weights cast to the
+    model dtype). The JAX function's s8 [in, out] is this tensor's ``.T``:
+    the int8 GEMM's ``wgmma`` reads 8-bit weights K-major only, so they are
+    laid out so once, here."""
     from mmdx_tpu_torch.ops.int8_gemm import div_exact
 
     wf = w.to(F32)
     ws = div_exact(torch.clamp_min(wf.abs().amax(0), 1e-12), 127.0)
-    return torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8), ws
+    q = torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8)
+    return q.T.contiguous(), ws
 
 
 def gelu_tanh(x):
@@ -113,22 +117,20 @@ def fused_ffn_ln_int8_plain(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale, ln_bias
                             eps: float = 1e-12):
     """Plain PyTorch version of ``_ffn_kernel_int8`` (``pallas_ffn.py:79-112``):
     exact s32 products, f32 dequant/GELU/residual/LayerNorm."""
-    from mmdx_tpu_torch.ops.int8_gemm import exact_matmul_s8
+    from mmdx_tpu_torch.ops.int8_gemm import gemm_dequant_plain
 
-    xf = x.to(F32)
-    xi, sx = quant_rows(xf)
-    mid = exact_matmul_s8(xi, wi_i8) * (sx[:, None] * wis) + bi.to(F32)
-    mid = gelu_tanh(mid)
+    xi, sx = quant_rows(x.to(F32))
+    mid = gemm_dequant_plain(xi, wi_i8, sx, wis, bi, None, F32, _build.DQ_GELU_TANH_F32)
     mi, sm = quant_rows(mid)
-    y = exact_matmul_s8(mi, wo_i8) * (sm[:, None] * wos) + bo.to(F32) + xf
+    y = gemm_dequant_plain(mi, wo_i8, sm, wos, bo, x, F32, _build.DQ_BIAS_RESID_F32)
     return layer_norm_f32(y, ln_scale, ln_bias, eps).to(x.dtype)
 
 
 def fused_ffn_ln_int8(x, wi_i8, wis, bi, wo_i8, wos, bo, ln_scale, ln_bias,
                       eps: float = 1e-12):
     """W8A8 FFN block, ``fused_ffn_ln_int8`` with the weights quantized once
-    by ``quant_weight_cols``: x [M, H]; wi_i8 s8 [H, F], wis f32 [F]; bi [F];
-    wo_i8 s8 [F, H], wos f32 [H]; bo, ln_scale, ln_bias [H].
+    by ``quant_weight_cols``: x [M, H]; wi_i8 s8 [F, H] (K-major), wis f32
+    [F]; bi [F]; wo_i8 s8 [H, F], wos f32 [H]; bo, ln_scale, ln_bias [H].
 
     Kernel (CUDA C++, ``csrc/int8_gemm.cu`` + ``csrc/gemm.cu``), five
     launches: row-quantize x; the int8 core with the dequant + bias +

@@ -106,9 +106,11 @@ def fold_block_epilogues(d: dict, s_in: float, s1: float, s2: float, s_out: floa
     (s/s_next)``, ``B = b/s_next``."""
     c1, c2, c3 = d["conv1"], d["conv2"], d["conv3"]
     m = c1["w"].shape[-1]
+    # the kernel reads [K, N] rows; the qparams hold each weight once, K-major
+    # ("w" is a view of "wk"), so these three are laid out per call
     return dict(
-        w1=c1["w"][0, 0], k1=c1["ws"] * _f32_ratio(s_in, s1), b1=div_exact(c1["b"], s1),
-        w2flat=c2["w"].reshape(9 * m, m),
+        w1=c1["w"][0, 0].contiguous(), k1=c1["ws"] * _f32_ratio(s_in, s1),
+        b1=div_exact(c1["b"], s1), w2flat=c2["w"].reshape(9 * m, m).contiguous(),
         k2=c2["ws"] * _f32_ratio(s1, s2), b2=div_exact(c2["b"], s2),
-        w3=c3["w"][0, 0], k3=c3["ws"] * _f32_ratio(s2, s_out),
+        w3=c3["w"][0, 0].contiguous(), k3=c3["ws"] * _f32_ratio(s2, s_out),
         b3=div_exact(c3["b"], s_out), kx=_f32_ratio(s_in, s_out))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Where the bf16 GEMM's time goes (``csrc/gemm.cu``), on one CUDA card.
+"""Where the time of the wgmma GEMMs goes, on one CUDA card: the bf16 GEMM
+(``csrc/gemm.cu``) or, with ``--int8``, the int8 GEMM (``csrc/int8_gemm.cu``).
 
-    python3 scripts/ablate_gemm.py
+    python3 scripts/ablate_gemm.py [--int8]
 
-Builds four variants of the port's kernels from copies of
-``mmdx_tpu_torch`` in a temporary directory, each with one part of the
-GEMM taken out of ``csrc/gemm.cu`` by a text substitution:
+Builds variants of the port's kernels from copies of ``mmdx_tpu_torch`` in
+a temporary directory, each with one part of the GEMM taken out of its
+source by a text substitution:
 
   base          the kernel as it is;
   no epilogue   the consumers return after their last MMA (no bias, no
@@ -14,13 +15,18 @@ GEMM taken out of ``csrc/gemm.cu`` by a text substitution:
                 epilogue stay);
   no loads      the producer arrives on each stage's barrier without a TMA
                 copy (the MMAs read whatever the ring holds);
+  no divide     (int8) the requant's rint(y / s_out) as a multiply by the
+                reciprocal alone: no true division, no check for a tie;
 
-and times each, in turns twice, with the bias epilogue on the plan
-``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
-3072) and long text's (M = 16384) and at B=4 (M = 384): the device time per
-call from a CUDA graph of 20 calls (``chip_smoke.graph_ms``). The variants
-compute wrong numbers; only their times mean something. Inputs are made
-from seed 0, as in chip_smoke.py.
+and times each, in turns twice: the bf16 GEMM with the bias epilogue on the
+plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
+3072) and long text's (M = 16384) and at B=4 (M = 384); the int8 GEMM at
+chip_smoke.py's K5 sites (the gray stem at B=32 and B=512, layer1 conv1,
+layer4 conv3 + residual) and at the text blocks' four projections with their
+epilogues at M = 3072: the device time per call from a CUDA graph of 20
+calls (``chip_smoke.graph_ms``). The variants compute wrong numbers; only
+their times mean something. Inputs are made from seed 0, as in
+chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -48,6 +54,31 @@ VARIANTS = {
     "no loads": (LOADS, "        mbar_arrive(&full[s]);"),
 }
 
+I8_MAIN_LOOP_WAIT = """  wgmma_wait<0>();
+  fence_operands(acc);
+  if constexpr (kDual) fence_operands(acc2);
+"""
+I8_MMA = """        if constexpr (kDual) {
+          if (second) wgmma_s8<BN>(acc2, da, db);
+          else wgmma_s8<BN>(acc, da, db);
+        } else {
+          wgmma_s8<BN>(acc, da, db);
+        }"""
+I8_LOADS = """        mbar_expect_tx(&full[s], STAGE);
+        const bool second = kDual && i >= steps1;
+        const int kc = (second ? i - steps1 : i) * BK;
+        tma_load_2d(st, second ? map_a2 : map_a, kc, m0, &full[s]);
+        tma_load_2d(st + A_BYTES, second ? map_b2 : map_b, kc, n0, &full[s]);"""
+I8_TIE = ("  if (fabsf(__fsub_rn(t, q)) > 0.5f - 0x1p-12f) "
+          "q = rintf(__fdiv_rn(y, s_out));\n")
+I8_VARIANTS = {
+    "base": (None, None),
+    "no epilogue": (I8_MAIN_LOOP_WAIT, I8_MAIN_LOOP_WAIT + "  if (p.M > 0) return;\n"),
+    "no MMA": (I8_MMA, "        ;"),
+    "no loads": (I8_LOADS, "        (void)st;\n        mbar_arrive(&full[s]);"),
+    "no divide": (I8_TIE, ""),
+}
+
 TIME = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -70,6 +101,43 @@ for m in (384, 3072, 16384):
 cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
 """
 
+I8_TIME = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+import chip_smoke as cs
+from mmdx_tpu_torch import _build
+from mmdx_tpu_torch.ops import int8_gemm as k5
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(cs.SEED)
+def s8(*s):
+    return torch.randint(-127, 128, s, generator=g, dtype=torch.int8).to(dev)
+def f32(*s):
+    return (1e-3 + 1e-2 * torch.rand(*s, generator=g)).to(dev)
+parts = []
+for name, m, k, n, res, rows in (("gray stem B=32", 401408, 64, 64, False, 12544),
+                                 ("gray stem B=512", 6422528, 64, 64, False, 12544),
+                                 ("layer1 conv1", 100352, 256, 64, False, 0),
+                                 ("layer4 conv3 + res", 1568, 512, 2048, True, 0)):
+    x, w, alpha = s8(m, k), s8(n, k), f32(n)
+    bias = f32(rows, n) if rows else f32(n)
+    r = s8(m, n) if res else None
+    fn = ((lambda: k5.int8_gemm_res_requant(x, w, alpha, bias, r, 0.01, 0.37)) if res
+          else (lambda: k5.int8_gemm_requant(x, w, alpha, bias, 0.37)))
+    parts.append(f"{name} {k5.int8_gemm_plan(m, n, k)} {cs.graph_ms(fn) * 1e3:.2f} us")
+m = 3072
+for name, n, k, epi in cs.TEXT_PROJECTIONS:
+    x, w, rs, cs_ = s8(m, k), s8(n, k), f32(m), f32(n)
+    bias = f32(n).to(torch.bfloat16)
+    resid = s8(m, n).to(torch.bfloat16) if "RESID" in epi else None
+    dt = torch.bfloat16 if epi == "DQ_BF16" else torch.float32
+    e = getattr(_build, epi)
+    t = cs.graph_ms(lambda: k5.gemm_dequant(x, w, rs, cs_, bias, resid, dt, e))
+    parts.append(f"{name} M={m} {k5.int8_gemm_plan(m, n, k)} {t * 1e3:.2f} us")
+cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
+"""
+
 
 def main() -> int:
     import torch
@@ -77,18 +145,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
         return 1
-    src = (ROOT / "mmdx_tpu_torch" / "csrc" / "gemm.cu").read_text()
+    int8 = "--int8" in sys.argv[1:]
+    source, variants, timer = (("int8_gemm.cu", I8_VARIANTS, I8_TIME) if int8
+                               else ("gemm.cu", VARIANTS, TIME))
+    src = (ROOT / "mmdx_tpu_torch" / "csrc" / source).read_text()
     with tempfile.TemporaryDirectory() as tmp:
         builds = {}
-        for name, (old, new) in VARIANTS.items():
+        for name, (old, new) in variants.items():
             d = Path(tmp) / name.replace(" ", "_")
             shutil.copytree(ROOT / "mmdx_tpu_torch", d / "mmdx_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
             if old is not None:
                 if src.count(old) != 1:
-                    print(f"FAIL: {name}: the text to take out is not in csrc/gemm.cu once")
+                    print(f"FAIL: {name}: the text to take out is not in csrc/{source} once")
                     return 1
-                (d / "mmdx_tpu_torch" / "csrc" / "gemm.cu").write_text(src.replace(old, new))
+                (d / "mmdx_tpu_torch" / "csrc" / source).write_text(src.replace(old, new))
             builds[name] = (d, subprocess.Popen(
                 [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
                  "from mmdx_tpu_torch import _build; _build.build()", str(d)]))
@@ -101,7 +172,7 @@ def main() -> int:
         print(f"card: {smi.stdout.strip()}", flush=True)
         for _ in range(2):
             for name, (d, _) in builds.items():
-                r = subprocess.run([sys.executable, "-c", TIME, str(d), str(ROOT), name])
+                r = subprocess.run([sys.executable, "-c", timer, str(d), str(ROOT), name])
                 if r.returncode != 0:
                     return r.returncode
     return 0

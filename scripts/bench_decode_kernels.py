@@ -2,7 +2,7 @@
 """Device time per call of the beam step's kernels and of the shared bf16
 GEMM, for any checkout of the PyTorch port, on one CUDA card.
 
-    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans]
+    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans] [--int8]
 
 PORT_ROOT (default: this repository) is the directory whose
 ``mmdx_tpu_torch`` is imported, so one call can time an older checkout
@@ -24,7 +24,12 @@ which leaves out the wrapper's host time:
   attention output, FFN in, FFN out, with the block's epilogue and, in a
   checkout that splits K, the split the block runs) at M = 32, 384, 3072
   and 16384, and the same product with the bias epilogue beside
-  ``torch.addmm(bias, a, b)`` on the same operands, the GEMM's yardstick.
+  ``torch.addmm(bias, a, b)`` on the same operands, the GEMM's yardstick;
+  K5 (``int8_gemm``) at every site of ``chip_smoke.K5_SITES`` (the int8
+  tower's shapes at B=32 and the gray stem at B=512), and K6
+  (``fused_ffn_ln_int8``) and K7 (``fused_attention_block_int8``) at M =
+  384, 3072 and 16384, CUDA graphs of 10 calls. With ``--int8``, only K5,
+  K6 and K7.
 
 With ``--ranks`` (a checkout with ``beam_attn.cluster_ranks``), rows 5 and
 6 are also timed at every cluster size, 1, 2, 4 and 8 blocks, pinned by
@@ -77,6 +82,9 @@ def main() -> int:
         torch.cuda.synchronize()
         smoke.log(f"[{tag}] {label}: device {smoke.graph_ms(fn, calls) * 1e3:.2f} us per call")
 
+    if "--int8" in sys.argv:
+        int8_kernels(report, randn, dev, g, smoke)
+        return 0
     dm, kc, dff, heads = 512, 4, 2048, 8
     for n in (4, 16, 20, 32, 64, 128):
         enc_bias = torch.zeros(n, kc)
@@ -137,7 +145,56 @@ def main() -> int:
                        pinned(r, beam_attn.beam_decode_attention, q, kv, mask, bias))
 
     text_kernels(report, randn, dev, tag)
+    int8_kernels(report, randn, dev, g, smoke)
     return 0
+
+
+def int8_kernels(report, randn, dev, g, smoke):
+    """K5 at every site of ``chip_smoke.K5_SITES`` (weights [N, K] where the
+    checkout has ``int8_gemm_plan``, else its older [K, N]), and K6 and K7
+    at ``chip_smoke.INT8_TEXT_SHAPES`` on the checkout's own
+    ``quant_weight_cols``."""
+    import torch
+
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn
+    from mmdx_tpu_torch.ops import int8_gemm as k5
+
+    k_major = hasattr(k5, "int8_gemm_plan")
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+
+    def scales(n):
+        return (1e-4 + 1e-2 * torch.rand(n, generator=g)).to(dev)
+
+    def vec(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    for name, m, k, n, epi, k2 in smoke.K5_SITES:
+        k += -k % k5.K_ALIGN  # the tower's zero padding
+        x, w = s8(m, k), (s8(n, k) if k_major else s8(k, n))
+        fn, _, args = smoke.k5_call(k5, epi, x, w, scales(n), s8, scales, vec, k2, k_major)
+        report(f"K5 {name} M={m} K={k} N={n}", lambda fn=fn, args=args, epi=epi:
+               fn(*args, relu=epi != "plain"))
+    h, f, heads = 768, 3072, 12
+    wqkv, wo = randn(h, 3 * h, scale=h ** -0.5), randn(h, h, scale=h ** -0.5)
+    wi, wf = randn(h, f, scale=h ** -0.5), randn(f, h, scale=f ** -0.5)
+    bqkv, bo, bi, bf_ = (randn(n, scale=0.02) for n in (3 * h, h, f, h))
+    lns, lnb = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
+    q = {k: fused_ffn.quant_weight_cols(w) for k, w in
+         (("qkv", wqkv), ("o", wo), ("i", wi), ("f", wf))}
+    for fb, fl, ab, al in smoke.INT8_TEXT_SHAPES:
+        x = randn(fb * fl, h)
+        ffn8 = (x, *q["i"], bi, *q["f"], bf_, lns, lnb)
+        report(f"K6 M={fb * fl} (B={fb} L={fl})",
+               lambda ffn8=ffn8: fused_ffn.fused_ffn_ln_int8(*ffn8, eps=1e-12), calls=10)
+        xa = randn(ab * al, h)
+        kmask = torch.zeros(ab * al, device=dev)
+        kmask.reshape(ab, al)[:, al - al // 4:] = -1e9
+        attn8 = (xa, kmask, *q["qkv"], bqkv, *q["o"], bo, lns, lnb)
+        report(f"K7 M={ab * al} (B={ab} L={al})",
+               lambda attn8=attn8, al=al: bert_attn.fused_attention_block_int8(
+                   *attn8, seq_len=al, num_heads=heads, eps=1e-12), calls=10)
 
 
 def text_kernels(report, randn, dev, tag):

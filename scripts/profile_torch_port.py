@@ -28,7 +28,9 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      host's self CPU total and op count, the top ops by device time, and for
      the gray classifies the device time of the image tower's convolutions:
      cuDNN's (``aten::cudnn_convolution``) in fast mode against K5
-     (``int8_gemm_kernel``) and its im2col/pool glue in turbo mode; for
+     (``int8_gemm_requant_kernel``) and its im2col/pool glue in turbo mode,
+     with K5's and the W8A8 text projections' (``int8_gemm_dequant_kernel``)
+     shares of the device time, at B=32 and B=512; for
      every generate K4's share and kernels per step (``decode_shares``),
      with K3's share (beam) or row 5's (greedy), and for fast classify B=4
      and gray B=32 the text tower's GEMM, attention core and LayerNorm
@@ -104,21 +106,31 @@ def profiled(name: str, fn, out_dir: Path) -> tuple[dict, float]:
     return ops, device
 
 
-def conv_time(name: str, ops: dict) -> None:
+# the int8 GEMM's two families: the requantizing one (K5, the tower) and
+# the dequantizing one (the W8A8 text blocks' projections); older checkouts
+# named them int8_gemm_kernel<false> and <true>
+K5_NAMES = ("int8_gemm_requant_kernel", "int8_gemm_kernel<false>")
+INT8_TEXT_NAMES = ("int8_gemm_dequant_kernel", "int8_gemm_kernel<true>")
+
+
+def conv_time(name: str, ops: dict, total: float, turbo: bool) -> None:
     """The image tower's convolution device time in one profiled classify:
-    cuDNN's in fast mode, K5's (and, apart, the int8 glue's) in turbo."""
+    cuDNN's in fast mode, K5's (and, apart, the int8 glue's) in turbo, with
+    K5's and the text projections' shares of the device time; in turbo,
+    exit if either reads 0 (a kernel renamed out of the match)."""
     cudnn = sum(t for k, (_, t, _) in ops.items() if k == "aten::cudnn_convolution")
-    # the int8 core's two instantiations: <false> requantizes (K5, the
-    # tower), <true> dequantizes (the W8A8 text blocks' projections)
-    k5 = device_ms(ops, lambda k: "int8_gemm_kernel<false>" in k)
-    text = device_ms(ops, lambda k: "int8_gemm_kernel<true>" in k)
+    k5 = device_ms(ops, lambda k: any(n in k for n in K5_NAMES))
+    text = device_ms(ops, lambda k: any(n in k for n in INT8_TEXT_NAMES))
     log(f"--- {name}: convolution device time: cuDNN {cudnn:.3f} ms (its bias adds "
         f"{ops.get('aten::add_', (0, 0, 0))[1]:.3f} ms, ReLUs "
         f"{ops.get('aten::clamp_min', (0, 0, 0))[1]:.3f} ms apart); K5 "
-        f"int8_gemm_kernel<false> {k5:.3f} ms; the text blocks' "
-        f"int8_gemm_kernel<true> {text:.3f} ms; im2col stacks (aten::cat) "
-        f"{ops.get('aten::cat', (0, 0, 0))[1]:.3f} ms, max-pool (aten::maximum) "
-        f"{ops.get('aten::maximum', (0, 0, 0))[1]:.3f} ms")
+        f"int8_gemm_requant_kernel {k5:.3f} ms ({k5 / total:.1%} of {total:.3f}); the "
+        f"text blocks' int8_gemm_dequant_kernel {text:.3f} ms ({text / total:.1%}); "
+        f"im2col stacks (aten::cat) {ops.get('aten::cat', (0, 0, 0))[1]:.3f} ms, max-pool "
+        f"(aten::maximum) {ops.get('aten::maximum', (0, 0, 0))[1]:.3f} ms")
+    if turbo and not (k5 > 0 and text > 0):
+        log(f"FAIL: {name}: an int8 GEMM share reads 0 ms (K5 {k5}, text {text})")
+        sys.exit(1)
 
 
 def main() -> int:
@@ -197,11 +209,12 @@ def main() -> int:
         decode_shares(f"greedy generate B={b}", ops, total, beam=False)
     ops, total = profiled("classify B=4", batches[4][0], out_dir)
     text_shares("classify B=4", ops, total)
-    for mode in ("fast", "turbo"):
-        ops, total = profiled(f"{mode} classify gray B=32", gray_batches[32][mode], out_dir)
-        conv_time(f"{mode} classify gray B=32", ops)
-        if mode == "fast":
-            text_shares("fast classify gray B=32", ops, total)
+    for b in (32, 512):
+        for mode in ("fast", "turbo"):
+            ops, total = profiled(f"{mode} classify gray B={b}", gray_batches[b][mode], out_dir)
+            conv_time(f"{mode} classify gray B={b}", ops, total, mode == "turbo")
+            if mode == "fast" and b == 32:
+                text_shares("fast classify gray B=32", ops, total)
     long_text_and_fused_routes(bundle, turbo, rng, out_dir, torch.device("cuda", 0))
     log(f"tables in {out_dir}")
     return 0

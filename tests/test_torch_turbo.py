@@ -66,45 +66,47 @@ def test_int8_gemm_plain_matches_pallas(gemm_data, case):
         if case.startswith("requant"):
             relu = case == "requant_relu"
             ref = pg.int8_gemm_requant(d["x"], d["w"], d["alpha"], d["bias"], s, relu=relu)
-            got = int8_gemm.int8_gemm_requant(_t(d["x"]), _t(d["w"]), _t(d["alpha"]),
+            got = int8_gemm.int8_gemm_requant(_t(d["x"]), _t(d["w"].T), _t(d["alpha"]),
                                               _t(d["bias"]), s, relu=relu)
         elif case == "residual":
             rs = np.float32(0.011)
             ref = pg.int8_gemm_res_requant(d["x"], d["w"], d["alpha"], d["bias"],
                                            d["res"], rs, s)
-            got = int8_gemm.int8_gemm_res_requant(_t(d["x"]), _t(d["w"]), _t(d["alpha"]),
+            got = int8_gemm.int8_gemm_res_requant(_t(d["x"]), _t(d["w"].T), _t(d["alpha"]),
                                                   _t(d["bias"]), _t(d["res"]), rs, s)
         else:
             ref = pg.int8_gemm_dual_requant(d["x"], d["w"], d["alpha"], d["bias"],
                                             d["x2"], d["w2"], d["alpha2"], d["bias2"], s)
             got = int8_gemm.int8_gemm_dual_requant(
-                _t(d["x"]), _t(d["w"]), _t(d["alpha"]), _t(d["bias"]), _t(d["x2"]),
-                _t(d["w2"]), _t(d["alpha2"]), _t(d["bias2"]), s)
+                _t(d["x"]), _t(d["w"].T), _t(d["alpha"]), _t(d["bias"]), _t(d["x2"]),
+                _t(d["w2"].T), _t(d["alpha2"]), _t(d["bias2"]), s)
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_int8_gemm_positional_bias_and_k_padding():
     """The gray stem's [P, N] bias map against the plain per-row arithmetic,
-    and its K = 49 (no multiple of 16): the weights padded once with zero
-    rows (``gemm_weight``) and the im2col's zero columns give the same
-    product as the unpadded operands."""
+    and its K = 49 (no multiple of 16): the K-major weights [N, K] padded
+    once with zero columns (``gemm_weight``) and the im2col's zero columns
+    give the same product as the unpadded operands."""
     rng = np.random.default_rng(1)
     n = 64
     img = _t(rng.integers(0, 128, (3, 6, 4, 1)).astype(np.int8))
     w = _t(rng.integers(-127, 128, (7, 7, 1, n)).astype(np.int8))
     wk = ri.gemm_weight(w)
-    assert wk.shape == (64, n) and wk.shape[0] % int8_gemm.K_ALIGN == 0
-    assert torch.equal(wk[:49], w.reshape(49, n)) and not wk[49:].any()
+    assert wk.shape == (n, 64) and wk.shape[1] % int8_gemm.K_ALIGN == 0
+    assert wk.is_contiguous()
+    assert torch.equal(wk[:, :49], w.reshape(49, n).T) and not wk[:, 49:].any()
     x, ho, wo = ri.im2col_s8(img, 7, 2, 3)
-    xp, _, _ = ri.im2col_s8(img, 7, 2, 3, wk.shape[0])
+    xp, _, _ = ri.im2col_s8(img, 7, 2, 3, wk.shape[1])
     assert x.shape == (3 * ho * wo, 49) and xp.shape == (3 * ho * wo, 64)
     assert torch.equal(xp[:, :49], x) and not xp[:, 49:].any()
     p = ho * wo
     alpha = _t(rng.uniform(1e-4, 1e-2, n).astype(np.float32))
     bmap = _t(rng.standard_normal((p, n)).astype(np.float32))
     got = int8_gemm.int8_gemm_requant(xp, wk, alpha, bmap, 0.25)
-    assert torch.equal(got, int8_gemm.int8_gemm_requant(x, w.reshape(49, n), alpha, bmap, 0.25))
+    assert torch.equal(got, int8_gemm.int8_gemm_requant(x, w.reshape(49, n).T, alpha, bmap,
+                                                        0.25))
     for r in range(3 * p):
         row = int8_gemm.int8_gemm_requant(xp[r:r + 1], wk, alpha, bmap[r % p], 0.25)
         assert torch.equal(got[r], row[0])
@@ -179,10 +181,10 @@ def test_ffn_int8_plain_matches_pallas():
     # the port's intermediates, and the Pallas module's GELU + quantizer on
     # its own (jitted) mid
     xi, sx = fused_ffn.quant_rows(_t(x))
-    g = fused_ffn.gelu_tanh(int8_gemm.exact_matmul_s8(xi, wi_q[0]) * (sx[:, None] * wi_q[1])
+    g = fused_ffn.gelu_tanh(int8_gemm.exact_matmul_s8(xi, wi_q[0].T) * (sx[:, None] * wi_q[1])
                             + _t(bi))
     gi, sg = fused_ffn.quant_rows(g)
-    y = int8_gemm.exact_matmul_s8(gi, wo_q[0]) * (sg[:, None] * wo_q[1]) + _t(bo) + _t(x)
+    y = int8_gemm.exact_matmul_s8(gi, wo_q[0].T) * (sg[:, None] * wo_q[1]) + _t(bo) + _t(x)
 
     @jax.jit
     def jax_gi(x, wi, bi):
@@ -193,7 +195,7 @@ def test_ffn_int8_plain_matches_pallas():
 
     _assert_int8_flips(gi.numpy(), jax_gi(x, wi, bi))
     _assert_w8a8_rows_close(got.numpy(), ref, g.numpy(), y.numpy(),
-                            (wo_q[0].to(torch.float32) * wo_q[1]).numpy(), lns)
+                            (wo_q[0].T.to(torch.float32) * wo_q[1]).numpy(), lns)
 
 
 def test_attn_int8_plain_matches_pallas():
@@ -219,11 +221,11 @@ def test_attn_int8_plain_matches_pallas():
         _t(x), _t(kmask), *wqkv_q, _t(bqkv), *wo_q, _t(bo), _t(lns), _t(lnb),
         seq_len=l, num_heads=heads)
     xi, sx = fused_ffn.quant_rows(_t(x))
-    qkv = (int8_gemm.exact_matmul_s8(xi, wqkv_q[0]) * (sx[:, None] * wqkv_q[1])
+    qkv = (int8_gemm.exact_matmul_s8(xi, wqkv_q[0].T) * (sx[:, None] * wqkv_q[1])
            + _t(bqkv))
     ctx = bert_attn.attention_ctx_f32(qkv, _t(kmask), l, heads)
     ci, sc = fused_ffn.quant_rows(ctx)
-    y = _t(x) + int8_gemm.exact_matmul_s8(ci, wo_q[0]) * (sc[:, None] * wo_q[1]) + _t(bo)
+    y = _t(x) + int8_gemm.exact_matmul_s8(ci, wo_q[0].T) * (sc[:, None] * wo_q[1]) + _t(bo)
 
     @jax.jit
     def jax_ci(x, kmask, wqkv, bqkv):  # _kernel_int8's chain, per sequence
@@ -240,7 +242,7 @@ def test_attn_int8_plain_matches_pallas():
 
     _assert_int8_flips(ci.numpy(), jax_ci(x, kmask, wqkv, bqkv))
     _assert_w8a8_rows_close(got.numpy(), ref, ctx.numpy(), y.numpy(),
-                            (wo_q[0].to(torch.float32) * wo_q[1]).numpy(), lns)
+                            (wo_q[0].T.to(torch.float32) * wo_q[1]).numpy(), lns)
 
 
 def test_text_tower_int8_matches_jax(tower):
@@ -331,7 +333,11 @@ def _weights_one_step_apart(q, ref) -> tuple[int, int]:
         refs = {"": ref[name]} if "w" in ref[name] else ref[name]
         assert convs.keys() == refs.keys()
         for k, c in convs.items():
-            assert all(t.is_contiguous() for t in c.values()), (name, k)
+            # every tensor contiguous but the HWIO "w", a view of the
+            # K-major "wk" [co, K] (one copy of each weight)
+            assert all(t.is_contiguous() for kk, t in c.items() if kk != "w"), (name, k)
+            assert c["w"].data_ptr() == c["wk"].data_ptr(), (name, k)
+            assert c["wk"].shape[0] == c["w"].shape[-1], (name, k)
             assert torch.equal(c["wk"], ri.gemm_weight(c["w"])), (name, k)
             d = c["w"].to(torch.int32).numpy() - refs[k]["w"].astype(np.int32)
             assert np.abs(d).max() <= 1, (name, k)
