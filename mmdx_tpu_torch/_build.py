@@ -5,7 +5,7 @@ Every ``mmdx_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
 with ``ctypes``. The library is built at first use into
 ``mmdx_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of the
 sources, so an edited source rebuilds and a fresh checkout builds by itself.
-The link needs no ``libcuda``: the one driver-API call, the GEMMs'
+The link needs no ``libcuda``: the one driver-API call, the TMA kernels'
 ``cuTensorMapEncodeTiled`` (TMA descriptors), is resolved at run time
 through ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).
 
@@ -39,10 +39,13 @@ SIGNATURES = {
     "mmdx_beam_attn": [_P] * 5 + [_I] * 6 + [_P],
     # q, kv, kvs, mask, bias, ctx, B, nb, K, heads, head_dim, ranks, stream
     "mmdx_beam_attn_int8": [_P] * 6 + [_I] * 6 + [_P],
-    # hidden, emb, mask, cmax, carg, N, V, D, stream
-    "mmdx_lm_head_greedy": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # hidden, emb, mask, logits, cmax, pmax, psum, m, L, N, V, D, stream
-    "mmdx_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # emb [V, D] bf16, V, D, map (128 bytes out)
+    "mmdx_lm_head_emb_map": [_P, _I, _I, _P],
+    # hidden, emb's map, mask, cmax, carg, N, V, D, warpgroups, stages, stream
+    "mmdx_lm_head_greedy": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # hidden, emb's map, mask, logits, cmax, m, L, workspace, N, V, D,
+    # warpgroups, stages, stream
+    "mmdx_lm_head_stats": [_P] * 8 + [_I] * 5 + [_P],
     # hidden, cross_ln, wq, wo_c, ck, cv, enc_bias, ffn_ln, wi, wo_f, y, ctx,
     # x, hmid, out, ws, N, D, F, KK, heads, eps, blocks, sq, so, si, sf, stream
     "mmdx_t5_cross_ffn": [_P] * 16 + [_I] * 5 + [_F] + [_I] * 5 + [_P],

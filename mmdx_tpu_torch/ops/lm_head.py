@@ -15,23 +15,34 @@ and the selection runs the product itself:
   and the chunk max over the MASKED logits, so the candidate top-k reads a
   few chunks instead of re-reading the [N, V] f32 logits.
 
-Kernel (CUDA C++, ``csrc/lm_head.cu``): one block per vocab chunk holds its
-128 emb rows in shared memory and walks the rows of ``hidden`` through the
-tensor cores, so emb is read once per call; the stats write per-chunk
-partials that a second launch merges into m and L (blocks run in no order,
-unlike the TPU kernel's sequential vocab grid). What bounds it on the H100:
-the 32.9 MB emb read at the T5 vocabulary, ~10 us.
+Kernel (CUDA C++, ``csrc/lm_head.cu``): one CTA per vocab chunk streams its
+128 emb rows through a TMA ring into ``wgmma`` against one or two 64-row
+tiles of ``hidden`` and takes the statistics from the accumulator registers;
+the stats merge their per-chunk partials into m and L in the same launch
+(the last CTAs to finish, one row a warp, in a fixed order). What bounds
+it on the H100: bytes, the 32.9 MB emb read at the T5 vocabulary, ~10 us.
+The plan (consumer warpgroups, row groups, stages) is
+``lm_head_plan``, computed here so the CPU tests see what the card runs.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from mmdx_tpu_torch import _build
+from mmdx_tpu_torch.ops.gemm import H100_SMS, cdiv
 
 CHUNK = 128
 F32 = torch.float32
+BK = 64                   # K step: one 128-byte swizzle row of bf16
+WG_ROWS = 64              # rows of hidden per consumer warpgroup (wgmma's m64)
+STAGE_BUDGET = 96 * 1024  # shared memory for a CTA's ring: two CTAs to an SM
+SM_SMEM = 233472          # shared memory of one SM (228 KB)
+CTA_RESERVED = 1024       # shared memory the runtime keeps per CTA
+MAP_BYTES = 128           # sizeof(CUtensorMap)
 
 
 class LazyLogits(NamedTuple):
@@ -57,6 +68,109 @@ def fused_route(logits) -> bool:
     return isinstance(logits, LazyLogits) and v % CHUNK == 0 and v >= 2 * CHUNK
 
 
+# ---------------------------------------------------------------------------
+# the plan, and the kernel's walk over it
+# ---------------------------------------------------------------------------
+class LmHeadPlan(NamedTuple):
+    warpgroups: int   # consumer warpgroups, 64 rows of hidden each
+    row_groups: int   # passes over a chunk's emb rows, 64 * warpgroups rows each
+    stages: int       # the ring's depth
+    ctas_per_sm: int
+    waves: int        # of the V / 128 chunk CTAs over the SMs
+
+
+def stage_bytes(warpgroups: int) -> int:
+    """One ring stage: a [128, 64] emb box and a [64 * warpgroups, 64]
+    hidden box (the mask tile of a row group, [64 * warpgroups, 128] bytes,
+    fits in it)."""
+    return (CHUNK + WG_ROWS * warpgroups) * BK * 2
+
+
+def smem_bytes(warpgroups: int, stages: int) -> int:
+    """A CTA's dynamic shared memory (``csrc/lm_head.cu:smem_bytes``): the
+    ring, 1 KB of alignment slack, two mbarriers a stage."""
+    return stages * stage_bytes(warpgroups) + 1024 + 2 * stages * 8
+
+
+def lm_head_plan(n: int, v: int, d: int, sms: int = H100_SMS) -> LmHeadPlan:
+    """The kernel's plan for ``hidden [n, d] @ emb [v, d]^T`` on ``sms`` SMs.
+
+    One consumer warpgroup up to 64 rows, else two, which share each emb
+    stage (emb read once up to 128 rows; past that the CTA walks row groups
+    of 128 and reads its chunk again); the ring fills ``STAGE_BUDGET`` (4
+    stages of 24 KB, or 3 of 32 KB), so two CTAs fit an SM. Raises unless
+    v is a multiple of 128 and d of 64."""
+    if n <= 0 or v <= 0 or v % CHUNK or d <= 0 or d % BK:
+        raise ValueError(f"lm_head_plan: unsupported shape n={n} v={v} d={d} "
+                         f"(v must be a multiple of {CHUNK}, d of {BK})")
+    wgs = 1 if n <= WG_ROWS else 2
+    stages = STAGE_BUDGET // stage_bytes(wgs)
+    ctas = min(2, SM_SMEM // (smem_bytes(wgs, stages) + CTA_RESERVED))
+    return LmHeadPlan(wgs, cdiv(n, WG_ROWS * wgs), stages, ctas,
+                      cdiv(v // CHUNK, ctas * sms))
+
+
+def lm_head_walk(n: int, v: int, plan: LmHeadPlan):
+    """The kernel's walk: (chunk, row group, warpgroup, first row, rows that
+    are real) for every accumulator tile it computes; rows past n are
+    TMA's zeros and are not stored."""
+    rg = WG_ROWS * plan.warpgroups
+    for chunk in range(v // CHUNK):
+        for g in range(plan.row_groups):
+            for w in range(plan.warpgroups):
+                row0 = g * rg + w * WG_ROWS
+                yield chunk, g, w, row0, max(0, min(WG_ROWS, n - row0))
+
+
+def workspace_words(n: int, v: int) -> int:
+    """The stats' workspace in 4-byte words (``mmdx_lm_head_stats``): the
+    per-chunk partials pmax and psum [n, C], then a 64-bit counter."""
+    return 2 * n * (v // CHUNK) + 2
+
+
+def merge_rows_of(ticket: int, chunks: int, n: int, warps: int) -> list[int]:
+    """The rows the CTA holding merge ticket ``ticket`` merges (none but
+    for the last R of a launch): R = min(C, max(8, ceil(n / warps)))
+    mergers, merger k taking rows k, k + R, ... (``csrc/lm_head.cu``)."""
+    r = min(chunks, max(8, cdiv(n, warps)))
+    k = ticket % chunks - (chunks - r)
+    return list(range(k, n, r)) if k >= 0 else []
+
+
+_WORKSPACE: dict = {}
+
+
+def workspace(device, n: int, v: int) -> torch.Tensor:
+    """The stats' workspace for (device, n, v), zeroed once and kept: its
+    counter only grows, launch after launch. Launches that share one must
+    not run concurrently (one decode stream)."""
+    key = (device, n, v)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = _WORKSPACE[key] = torch.zeros(workspace_words(n, v), dtype=torch.int32,
+                                           device=device)
+    return ws
+
+
+@functools.lru_cache(maxsize=64)
+def _emb_map(ptr: int, v: int, d: int):
+    buf = (ctypes.c_ubyte * MAP_BYTES)()
+    _build.check(_build.lib().mmdx_lm_head_emb_map(ptr, v, d, ctypes.addressof(buf)),
+                 "lm_head_emb_map")
+    return buf
+
+
+def emb_map(emb) -> int:
+    """The host address of the TMA descriptor of ``emb [V, D]``, encoded at
+    its first use and kept (a descriptor holds only the address, the shape
+    and the box)."""
+    v, d = emb.shape
+    return ctypes.addressof(_emb_map(emb.data_ptr(), v, d))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 def _chunk_argmax(masked):
     """[N, V] -> (chunk max [N, C], earliest offset attaining it [N, C])."""
     n, v = masked.shape
@@ -85,15 +199,17 @@ def lm_head_stats_plain(hidden, emb, mask):
     return logits, m, lse, cmax
 
 
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
 def _check(hidden, emb, mask):
     n, d = hidden.shape
     v = emb.shape[0]
-    if v % CHUNK or d % 16:
-        raise ValueError(f"lm_head: needs V % {CHUNK} == 0 and D % 16 == 0, got {v}, {d}")
+    plan = lm_head_plan(n, v, d)
     _build.require(hidden, "hidden", torch.bfloat16, (n, d))
     _build.require(emb, "emb", torch.bfloat16, (v, d))
     _build.require(mask, "mask", torch.bool, (n, v))
-    return n, v, d
+    return n, v, d, plan
 
 
 def lm_head_greedy(hidden, emb, mask):
@@ -104,12 +220,12 @@ def lm_head_greedy(hidden, emb, mask):
     (bf16) or raise."""
     if hidden.device.type == "cpu":
         return lm_head_greedy_plain(hidden, emb, mask)
-    n, v, d = _check(hidden, emb, mask)
+    n, v, d, plan = _check(hidden, emb, mask)
     cmax = torch.empty((n, v // CHUNK), dtype=F32, device=hidden.device)
     carg = torch.empty((n, v // CHUNK), dtype=torch.int32, device=hidden.device)
     _build.check(_build.lib().mmdx_lm_head_greedy(
-        hidden.data_ptr(), emb.data_ptr(), mask.data_ptr(), cmax.data_ptr(),
-        carg.data_ptr(), n, v, d, _build.stream(hidden)), "lm_head_greedy")
+        hidden.data_ptr(), emb_map(emb), mask.data_ptr(), cmax.data_ptr(), carg.data_ptr(),
+        n, v, d, plan.warpgroups, plan.stages, _build.stream(hidden)), "lm_head_greedy")
     lm_head_greedy.launches += 1
     return cmax, carg
 
@@ -119,24 +235,21 @@ lm_head_greedy.launches = 0
 
 def lm_head_stats(hidden, emb, mask):
     """As ``lm_head_greedy`` -> (logits [N, V] f32, m [N] f32, L [N] f32,
-    cmax [N, V/128] f32).
+    cmax [N, V/128] f32), in one launch.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16) or raise."""
     if hidden.device.type == "cpu":
         return lm_head_stats_plain(hidden, emb, mask)
-    n, v, d = _check(hidden, emb, mask)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=F32, device=hidden.device)
-
-    logits, cmax, pmax, psum = empty(n, v), empty(n, v // CHUNK), \
-        empty(n, v // CHUNK), empty(n, v // CHUNK)
-    m, lse = empty(n), empty(n)
+    n, v, d, plan = _check(hidden, emb, mask)
+    dev = hidden.device
+    logits = torch.empty((n, v), dtype=F32, device=dev)
+    cmax = torch.empty((n, v // CHUNK), dtype=F32, device=dev)
+    m, lse = torch.empty(n, dtype=F32, device=dev), torch.empty(n, dtype=F32, device=dev)
     _build.check(_build.lib().mmdx_lm_head_stats(
-        hidden.data_ptr(), emb.data_ptr(), mask.data_ptr(), logits.data_ptr(),
-        cmax.data_ptr(), pmax.data_ptr(), psum.data_ptr(), m.data_ptr(), lse.data_ptr(),
-        n, v, d, _build.stream(hidden)), "lm_head_stats")
+        hidden.data_ptr(), emb_map(emb), mask.data_ptr(), logits.data_ptr(), cmax.data_ptr(),
+        m.data_ptr(), lse.data_ptr(), workspace(dev, n, v).data_ptr(), n, v, d,
+        plan.warpgroups, plan.stages, _build.stream(hidden)), "lm_head_stats")
     lm_head_stats.launches += 1
     return logits, m, lse, cmax
 

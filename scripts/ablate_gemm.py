@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Where the time of the wgmma GEMMs goes, on one CUDA card: the bf16 GEMM
-(``csrc/gemm.cu``) or, with ``--int8``, the int8 GEMM (``csrc/int8_gemm.cu``).
+(``csrc/gemm.cu``), with ``--int8`` the int8 GEMM (``csrc/int8_gemm.cu``),
+with ``--lm-head`` the streamed lm head (``csrc/lm_head.cu``, rows 10, 11).
 
-    python3 scripts/ablate_gemm.py [--int8]
+    python3 scripts/ablate_gemm.py [--int8 | --lm-head]
 
 Builds variants of the port's kernels from copies of ``mmdx_tpu_torch`` in
 a temporary directory, each with one part of the GEMM taken out of its
@@ -17,6 +18,13 @@ source by a text substitution:
                 copy (the MMAs read whatever the ring holds);
   no divide     (int8) the requant's rint(y / s_out) as a multiply by the
                 reciprocal alone: no true division, no check for a tie;
+  no merge      (lm head) the stats' CTAs return after their epilogue and
+                ticket: no wait for the count, no merge of the partials;
+  no logits     (lm head) the stats' logits are not stored;
+  one logits chunk  (lm head) every CTA stores its logits over chunk 0's
+                columns: the same bytes, a 64 KB footprint that stays in L2;
+  streaming stores  (lm head) the logits stored with st.global.cs
+                (evict first);
 
 and times each, in turns twice: the bf16 GEMM with the bias epilogue on the
 plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
@@ -24,7 +32,10 @@ plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
 chip_smoke.py's K5 sites (the gray stem at B=32 and B=512, layer1 conv1,
 layer4 conv3 + residual) and at the text blocks' four projections with their
 epilogues at M = 3072: the device time per call from a CUDA graph of 20
-calls (``chip_smoke.graph_ms``). The variants compute wrong numbers; only
+calls (``chip_smoke.graph_ms``); the lm head's greedy at N = 4 and 64 and
+stats at N = 16, 128 and 256 (T5 vocabulary 32128 x 512), each with L2
+warm (a graph of 20 calls) and cold (a graph of 20 pairs of a 128 MB read
+and a call, less the reads alone). The variants compute wrong numbers; only
 their times mean something. Inputs are made from seed 0, as in
 chip_smoke.py.
 """
@@ -78,6 +89,62 @@ I8_VARIANTS = {
     "no loads": (I8_LOADS, "        (void)st;\n        mbar_arrive(&full[s]);"),
     "no divide": (I8_TIE, ""),
 }
+
+LM_EPILOGUE = """      epilogue<STATS>(acc, smem + s * STAGE + wg * 64 * CHUNK, p, g * RG + wg * 64, chunk, t);
+"""
+LM_LOGITS = """        store_logits(acc, p, g * RG + wg * 64, chunk, t);
+"""
+LM_MMA = """          wgmma_bf16_m64n128<0>(acc, wgmma_desc(a + kk * 32, 16, 1024),
+                                wgmma_desc(b + kk * 32, 16, 1024));"""
+LM_LOADS = """          if (k < p.ksteps) {
+            mbar_expect_tx(&full[s], STAGE);
+            tma_load_2d(st, &map_e, k * BK, col0, &full[s]);
+            tma_load_2d(st + EMB_BOX, &map_h, k * BK, g * RG, &full[s]);
+          } else {
+            mbar_expect_tx(&full[s], RG * CHUNK);
+            tma_load_2d(st, &map_m, col0, g * RG, &full[s]);
+          }"""
+LM_MERGE = """    __syncthreads();
+    const int k = (int)(ticket % C) - (C - R);"""
+LM_STORE = """        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);"""
+LM_OUT = "float* out = p.logits + (size_t)n * p.V + chunk * CHUNK + 2 * (t % 4);"
+LM_VARIANTS = {
+    "base": (None, None),
+    "no epilogue": [(LM_EPILOGUE, ""), (LM_LOGITS, "")],
+    "no MMA": (LM_MMA, "          ;"),
+    "no loads": (LM_LOADS, "          (void)st;\n          mbar_arrive(&full[s]);"),
+    "no merge": (LM_MERGE, "    if (p.N > 0) return;\n" + LM_MERGE),
+    "no logits": (LM_STORE, "        (void)out;"),
+    "one logits chunk": (LM_OUT, LM_OUT.replace("chunk * CHUNK + ", "")),
+    "streaming stores": (LM_STORE, LM_STORE.replace(
+        "*reinterpret_cast<float2*>(out + 8 * j) =", "__stcs(reinterpret_cast<float2*>(out + 8 * j),")
+        .replace("acc[4 * j + 2 * h + 1]);", "acc[4 * j + 2 * h + 1]));")),
+}
+
+LM_TIME = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+import chip_smoke as cs
+from mmdx_tpu_torch.ops import lm_head
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(cs.SEED)
+v, dm = 32128, 512
+emb = torch.randn(v, dm, generator=g).to(dev, torch.bfloat16)
+buf = torch.zeros(32 * 2 ** 20, device=dev)
+parts = []
+for name, n in (("greedy", 4), ("greedy", 64), ("stats", 16), ("stats", 128), ("stats", 256)):
+    h = (torch.randn(n, dm, generator=g) * dm ** -0.5).to(dev, torch.bfloat16)
+    mask = (torch.rand(n, v, generator=g) < 0.001).to(dev)
+    fn = getattr(lm_head, "lm_head_" + name)
+    call = lambda: fn(h, emb, mask)
+    warm = cs.graph_ms(call)
+    cold = cs.graph_ms(lambda: (buf.amax(), call())) - cs.graph_ms(buf.amax)
+    parts.append(f"{name} N={n} cold {cold * 1e3:.2f} us, warm {warm * 1e3:.2f} us")
+cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
+"""
 
 TIME = r"""
 import sys
@@ -145,21 +212,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this script needs a CUDA card")
         return 1
-    int8 = "--int8" in sys.argv[1:]
-    source, variants, timer = (("int8_gemm.cu", I8_VARIANTS, I8_TIME) if int8
-                               else ("gemm.cu", VARIANTS, TIME))
+    source, variants, timer = (
+        ("int8_gemm.cu", I8_VARIANTS, I8_TIME) if "--int8" in sys.argv[1:]
+        else ("lm_head.cu", LM_VARIANTS, LM_TIME) if "--lm-head" in sys.argv[1:]
+        else ("gemm.cu", VARIANTS, TIME))
     src = (ROOT / "mmdx_tpu_torch" / "csrc" / source).read_text()
     with tempfile.TemporaryDirectory() as tmp:
         builds = {}
-        for name, (old, new) in variants.items():
+        for name, edit in variants.items():
             d = Path(tmp) / name.replace(" ", "_")
             shutil.copytree(ROOT / "mmdx_tpu_torch", d / "mmdx_tpu_torch",
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            if old is not None:
-                if src.count(old) != 1:
+            text = src
+            # one (old, new) substitution, or a list of them
+            for old, new in (edit if isinstance(edit, list) else [edit]):
+                if old is None:
+                    continue
+                if text.count(old) != 1:
                     print(f"FAIL: {name}: the text to take out is not in csrc/{source} once")
                     return 1
-                (d / "mmdx_tpu_torch" / "csrc" / source).write_text(src.replace(old, new))
+                text = text.replace(old, new)
+            (d / "mmdx_tpu_torch" / "csrc" / source).write_text(text)
             builds[name] = (d, subprocess.Popen(
                 [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
                  "from mmdx_tpu_torch import _build; _build.build()", str(d)]))

@@ -2,7 +2,7 @@
 """Device time per call of the beam step's kernels and of the shared bf16
 GEMM, for any checkout of the PyTorch port, on one CUDA card.
 
-    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans] [--int8]
+    python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans] [--int8] [--lm-head]
 
 PORT_ROOT (default: this repository) is the directory whose
 ``mmdx_tpu_torch`` is imported, so one call can time an older checkout
@@ -30,6 +30,21 @@ which leaves out the wrapper's host time:
   (``fused_ffn_ln_int8``) and K7 (``fused_attention_block_int8``) at M =
   384, 3072 and 16384, CUDA graphs of 10 calls. With ``--int8``, only K5,
   K6 and K7.
+
+With ``--lm-head``, only rows 10 and 11 (``lm_head_greedy``,
+``lm_head_stats``, T5 vocabulary 32128 x 512) at N = 4, 16, 64, 128 and 256
+rows: the device time per call with L2 cold (a CUDA graph of 20 pairs of a
+128 MB flush and a call, less a graph of the 20 flushes alone: in a decode
+step the decoder's weights and caches evict the 32.9 MB emb from the 50 MB
+L2), the flush a write (``zero_``, which leaves the L2 full of dirty lines
+that the call then writes back) or a read (``amax``, clean lines, as the
+decoder's weight and cache reads leave it), and warm (a graph of 20 calls),
+each beside the dense route it replaces at the same N, cold and warm:
+``T5.lm_logits_step``'s f32 product against
+the f32 copy of the embedding, then ``masked_fill`` and ``argmax`` (greedy),
+or the dense ``candidate_topk`` chain (beam-4, its last ``torch.topk``
+without the tie check's host sync); beside row 11, a ``fill_`` of an
+[N, 32128] f32 tensor: the logits' bytes written in address order.
 
 With ``--ranks`` (a checkout with ``beam_attn.cluster_ranks``), rows 5 and
 6 are also timed at every cluster size, 1, 2, 4 and 8 blocks, pinned by
@@ -84,6 +99,9 @@ def main() -> int:
 
     if "--int8" in sys.argv:
         int8_kernels(report, randn, dev, g, smoke)
+        return 0
+    if "--lm-head" in sys.argv:
+        lm_head_kernels(smoke, dev, g, tag)
         return 0
     dm, kc, dff, heads = 512, 4, 2048, 8
     for n in (4, 16, 20, 32, 64, 128):
@@ -195,6 +213,71 @@ def int8_kernels(report, randn, dev, g, smoke):
         report(f"K7 M={ab * al} (B={ab} L={al})",
                lambda attn8=attn8, al=al: bert_attn.fused_attention_block_int8(
                    *attn8, seq_len=al, num_heads=heads, eps=1e-12), calls=10)
+
+
+def lm_head_kernels(smoke, dev, g, tag):
+    """Rows 10 and 11 beside the dense route at N = 4, 16, 64, 128, 256, L2
+    cold and warm (see the module's note)."""
+    import torch
+
+    from mmdx_tpu_torch.ops import lm_head
+
+    v, dm, eos = 32128, 512, 1
+    flush_buf = torch.zeros(32 * 2 ** 20, dtype=torch.float32, device=dev)  # 128 MB
+
+    def cold(fn, flush):
+        return smoke.graph_ms(lambda: (flush(), fn())) - smoke.graph_ms(flush)
+
+    def times(fn):
+        """(cold after a write flush, cold after a read flush, warm) device
+        us per call."""
+        fn()
+        torch.cuda.synchronize()
+        return (cold(fn, flush_buf.zero_) * 1e3, cold(fn, flush_buf.amax) * 1e3,
+                smoke.graph_ms(fn) * 1e3)
+
+    emb = torch.randn(v, dm, generator=g).to(dev, torch.bfloat16)
+    w32 = emb.float()  # T5._lm_weight_f32: the cached f32 copy
+    for n in (4, 16, 64, 128, 256):
+        raw = torch.randn(n, dm, generator=g).to(dev, torch.bfloat16)
+        hidden = raw * dm ** -0.5
+        mask = (torch.rand(n, v, generator=g) < 0.001).to(dev)
+        mask[:, eos] = True
+        b, nb = max(1, n // 4), min(4, n)
+        scores = torch.randn(b, nb, generator=g).to(dev)
+
+        def dense_logits():
+            return (raw * dm ** -0.5).to(torch.float32) @ w32.t()
+
+        def dense_greedy():
+            return dense_logits().masked_fill(mask, float("-inf")).argmax(-1)
+
+        def dense_beam():
+            x = dense_logits()
+            m = x.amax(dim=-1, keepdim=True)
+            lse = torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True))
+            a = x.clone()
+            a[:, eos] = float("-inf")
+            a = a.masked_fill(mask, float("-inf"))
+            adjusted = ((a - m) - lse) + scores.reshape(n, 1)
+            return torch.topk(adjusted.reshape(b, nb * v), 2 * nb + 1, dim=1)
+
+        for row, name, dense, what in (
+                (10, "lm_head_greedy", dense_greedy, "product, masked_fill, argmax"),
+                (11, "lm_head_stats", dense_beam, "product, candidate_topk chain")):
+            fn = getattr(lm_head, name)
+            kernel = times(lambda: fn(hidden, emb, mask))
+            route = times(dense)
+            fill = ""
+            if row == 11:  # the logits' bytes written in address order, for reference
+                logits = torch.empty(n, v, device=dev)
+                f = times(lambda: logits.fill_(0.5))
+                fill = (f"; fill_ of the [{n}, {v}] f32 logits cold {f[0]:.2f}, {f[1]:.2f} us, "
+                        f"warm {f[2]:.2f} us")
+            smoke.log(f"[{tag}] row {row} {name} N={n}: device cold (write flush, read "
+                      f"flush) {kernel[0]:.2f}, {kernel[1]:.2f} us, warm {kernel[2]:.2f} us "
+                      f"per call; dense route ({what}) cold {route[0]:.2f}, {route[1]:.2f} us, "
+                      f"warm {route[2]:.2f} us{fill}")
 
 
 def text_kernels(report, randn, dev, tag):

@@ -3,6 +3,7 @@
 fast and turbo paths (mmdx_tpu_torch) on one CUDA card.
 
     python3 scripts/profile_torch_port.py
+    python3 scripts/profile_torch_port.py --fused-lm-head  # the A/B of 6. alone
 
 Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
 (``pad_to``):
@@ -45,7 +46,16 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      without ``MMDX_INT8_FUSED_BLOCKS=1,2`` on the same int8 tower; the bf16
      image tower with ``use_fused_bottleneck`` against the cuDNN tower at
      B=32 on 224x224 inputs; ``preprocess_batch_fused`` against
-     ``preprocess_batch_device`` at B=32 on 512x512x3 uint8 images.
+     ``preprocess_batch_device`` at B=32 on 512x512x3 uint8 images;
+  6. the ``MMDX_FUSED_LM_HEAD`` switch (the streamed lm head, rows 10 and
+     11, against the dense f32 logits; read when an engine is built, off
+     by default): fast generate with the switch on and off, beam-4 at B=4
+     and B=32 and greedy at B=4 and B=64, in turns (off, on, on, off)
+     three times after a warm-up, then one profiled call of each: device
+     ms, busy share and, with the switch on, the share of
+     ``lm_head_kernel`` (rows 10 and 11) and its launches, one a decode
+     step (K4's launches over the decoder layers); the script fails if
+     that share reads 0 or the launches are not one a step.
 """
 from __future__ import annotations
 
@@ -156,6 +166,7 @@ def main() -> int:
     engine = InferenceEngine(bundle, mode="fast", device=torch.device("cuda", 0))
     rng = np.random.default_rng(SEED)
     batches = {}
+    only_ab = "--fused-lm-head" in sys.argv[1:]
     for b in (1, 4, 32):
         images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(b)]
         texts = [TEXTS[i % len(TEXTS)] for i in range(b)]
@@ -164,12 +175,18 @@ def main() -> int:
             return engine.classify_batch(images, texts, pad_to=b)
 
         _, z_img, z_txt = classify()
+        if only_ab:
+            batches[b] = (classify, z_img, z_txt)
+            continue
         engine.generate_report_ids(z_img, z_txt)  # warm-up
         cls = sorted(synced_ms(classify)[1] for _ in range(3))
         gen = sorted(synced_ms(lambda: engine.generate_report_ids(z_img, z_txt))[1]
                      for _ in range(2))
         log(f"B={b}: classify ms {cls}, generate ms {gen} (beam 4, 180 max steps)")
         batches[b] = (classify, z_img, z_txt)
+    if only_ab:
+        fused_lm_head_ab(bundle, engine, batches, out_dir)
+        return 0
 
     turbo = InferenceEngine(bundle, mode="turbo", device=torch.device("cuda", 0))
     gray_batches = {}
@@ -216,8 +233,53 @@ def main() -> int:
             if mode == "fast" and b == 32:
                 text_shares("fast classify gray B=32", ops, total)
     long_text_and_fused_routes(bundle, turbo, rng, out_dir, torch.device("cuda", 0))
+    fused_lm_head_ab(bundle, engine, batches, out_dir)
     log(f"tables in {out_dir}")
     return 0
+
+
+def fused_lm_head_ab(bundle, engine, batches, out_dir: Path) -> None:
+    """Section 6: generate with ``MMDX_FUSED_LM_HEAD=1`` against the
+    default engine ``engine`` on the conditioning of ``batches`` (B -> (fn,
+    z_img, z_txt))."""
+    import os
+
+    import torch
+
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    os.environ["MMDX_FUSED_LM_HEAD"] = "1"
+    try:
+        fused = InferenceEngine(bundle, mode="fast", device=engine.device)
+    finally:
+        os.environ.pop("MMDX_FUSED_LM_HEAD")
+    if not fused.fused_lm_head or engine.fused_lm_head:
+        log("FAIL: MMDX_FUSED_LM_HEAD did not reach the engines as set")
+        sys.exit(1)
+    z = {4: batches[4][1:], 32: batches[32][1:],
+         64: tuple(torch.cat([t, t]) for t in batches[32][1:])}
+    for greedy, sizes in ((False, (4, 32)), (True, (4, 64))):
+        for b in sizes:
+            route = f"{'greedy' if greedy else 'beam-4'} generate B={b}"
+            in_turns(route, *((name, lambda eng=eng, b=b: eng.generate_report_ids(
+                *z[b], greedy=greedy)) for name, eng in (("default", engine),
+                                                         ("MMDX_FUSED_LM_HEAD=1", fused))))
+            for name, eng in (("default", engine), ("MMDX_FUSED_LM_HEAD=1", fused)):
+                label = f"{route} {name}"
+                ops, total = profiled(label, lambda: eng.generate_report_ids(
+                    *z[b], greedy=greedy), out_dir)
+                if eng is fused:
+                    ms = device_ms(ops, lambda k: "lm_head_kernel" in k)
+                    share(label, "rows 10/11 (lm_head_kernel)", ms, total)
+                    # one lm-head kernel a step: K4 launches once a layer a step
+                    heads = sum(c for k, (_, _, c) in ops.items() if "lm_head_kernel" in k)
+                    k4 = sum(c for k, (_, _, c) in ops.items() if "t5_cross_ffn_kernel" in k)
+                    steps = k4 / bundle.config.report.num_decoder_layers
+                    log(f"--- {label}: lm_head_kernel launches {heads} over {steps:g} steps")
+                    if ms <= 0 or heads != steps:
+                        log(f"FAIL: {label}: the lm head's share reads {ms} ms, or its "
+                            f"launches ({heads}) are not one a step ({steps:g})")
+                        sys.exit(1)
 
 
 def device_ms(ops: dict, pred) -> float:
