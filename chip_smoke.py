@@ -17,7 +17,8 @@ Phases (any failure exits nonzero):
      library call of the same function (scaled_dot_product_attention); the
      lm head (rows 10, 11) at N = 1 to 256 rows with a fully banned chunk
      and row, and on exact ties, each one kernel a call as the profiler
-     counts it and the stats bit-equal over two launches; for
+     counts it in every window (all taken first, before any CUDA graph)
+     and the stats bit-equal over two launches; for
      K3, K4, K5 (every site, with TOP/s, GB/s and torch._int_mm's time for
      the product alone), K6, K7 and rows 5, 7 and 9 (and the library call)
      also the device time per call from a CUDA graph of 20 calls, which
@@ -53,6 +54,8 @@ Phases (any failure exits nonzero):
        the unfused turbo engine; the fused preprocessing beside the matmul
        one; the bf16 image tower with use_fused_bottleneck against the cuDNN
        tower;
+     before them, the width contracts: an engine on the card from 16-wide
+     heads is refused at construction, naming K1; the CPU engine answers;
   4. /api/predict/ through the port's WSGI app, in process: fast mode,
      turbo mode with a gray PNG upload, and fast mode with greedy reports.
 
@@ -297,6 +300,7 @@ def phase_kernels(device) -> dict:
 
     from mmdx_tpu_torch.ops import beam_attn, t5_step
 
+    lm_head_windows(device)  # before any CUDA graph (graph_ms) in the process
     g = torch.Generator(device="cpu").manual_seed(SEED)
     bf = torch.bfloat16
 
@@ -633,78 +637,95 @@ def lm_head_check(name, hidden, emb, mask, label, exact=False) -> float:
     return err
 
 
-def kernel_launches(fn, calls: int = 5):
+def kernel_launches(fn, calls: int = 5) -> float:
     """CUDA kernels per call of ``fn``, as the profiler counts them over
-    ``calls`` calls, or None where three windows recorded no device
-    activity at all: on an H100 the profiler drops a short window's device
-    trace now and then (once in 19 windows, and three windows running in
-    another process), while the same call's kernel runs and is counted
-    before and after."""
+    ``calls`` calls in one window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-        if kernels:
-            return kernels / calls
-    return None
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / calls
+
+
+def lm_head_inputs(device, g, n: int, v: int = 32128, dm: int = 512):
+    """Row 10/11 inputs at N = n: hidden, and a mask with the eos column
+    banned, one fully banned chunk and (N >= 4) one fully banned row."""
+    import torch
+
+    hidden = (torch.randn(n, dm, generator=g) * dm ** -0.5).to(device, torch.bfloat16)
+    mask = (torch.rand(n, v, generator=g) < 0.001).to(device)
+    mask[:, 1] = True  # the eos column, below min length
+    mask[0, 128:256] = True  # a fully banned chunk
+    if n >= 4:
+        mask[-1] = True  # a fully banned row: cmax -inf, carg 0; m and L raw
+    return hidden, mask
+
+
+def lm_head_windows(device) -> None:
+    """Rows 10 and 11 at N in LM_HEAD_ROWS: kernels a call as the profiler
+    counts them, every window taken before any CUDA graph is captured in the
+    process. After graphs are captured and replayed, about one short window
+    in 150 to 500 loses its device records, all or part of them (an H100,
+    ``scripts/profiler_windows.py``); before any graph, none of 320 did.
+    Fails unless every window counts one kernel a call."""
+    import torch
+
+    from mmdx_tpu_torch.ops import lm_head
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    emb = torch.randn(32128, 512, generator=g).to(device, torch.bfloat16)
+    for n in LM_HEAD_ROWS:
+        hidden, mask = lm_head_inputs(device, g, n)
+        for name in ("lm_head_greedy", "lm_head_stats"):
+            fn = getattr(lm_head, name)
+            fn(hidden, emb, mask)
+            launches = kernel_launches(lambda: fn(hidden, emb, mask))
+            if launches != 1:
+                fail(f"{name} N={n}: the profiler counts {launches:g} kernels per call, "
+                     f"not 1")
+    log(f"rows 10, 11: one kernel a call in each of {2 * len(LM_HEAD_ROWS)} profiler "
+        f"windows (N = {', '.join(map(str, LM_HEAD_ROWS))})")
 
 
 def phase_lm_head(device, g) -> dict:
     """Rows 10 and 11 (the streamed lm head, T5 vocabulary 32128 x 512) at
     N in LM_HEAD_ROWS, each with the eos column banned, one fully banned
-    chunk and (N >= 4) one fully banned row, and a single kernel launch a
-    call wherever the profiler records the window (it fails unless one
-    window is recorded); then exact ties in and across chunks at N = 20
-    over a vocabulary of 2 chunks (small integers, so every logit is exact
-    and equal logits tie exactly). -> the records at LM_HEAD_RECORD."""
+    chunk and (N >= 4) one fully banned row (one kernel a call:
+    ``lm_head_windows``, at the start of phase 2); then exact ties in and
+    across chunks at N = 20 over a vocabulary of 2 chunks (small integers,
+    so every logit is exact and equal logits tie exactly). -> the records at
+    LM_HEAD_RECORD."""
     import torch
 
     from mmdx_tpu_torch.ops import lm_head
 
     out = {}
-    counted = 0
     v, dm = 32128, 512
     emb = torch.randn(v, dm, generator=g).to(device, torch.bfloat16)
     for n in LM_HEAD_ROWS:
-        hidden = (torch.randn(n, dm, generator=g) * dm ** -0.5).to(device, torch.bfloat16)
-        mask = (torch.rand(n, v, generator=g) < 0.001).to(device)
-        mask[:, 1] = True  # the eos column, below min length
-        mask[0, 128:256] = True  # a fully banned chunk
-        if n >= 4:
-            mask[-1] = True  # a fully banned row: cmax -inf, carg 0; m and L raw
+        hidden, mask = lm_head_inputs(device, g, n, v, dm)
         for name in ("lm_head_greedy", "lm_head_stats"):
             row = 10 if name == "lm_head_greedy" else 11
             fn, plain = getattr(lm_head, name), getattr(lm_head, name + "_plain")
             plan = lm_head.lm_head_plan(n, v, dm)
             log(f"row {row} {name}: hidden [{n}, {dm}], emb [{v}, {dm}] bf16; plan {plan}")
             err = lm_head_check(name, hidden, emb, mask, f"N={n}")
-            launches = kernel_launches(lambda: fn(hidden, emb, mask))
-            if launches is not None and launches != 1:
-                fail(f"row {row} N={n}: the profiler counts {launches:g} kernels per call, "
-                     f"not 1")
-            counted += launches is not None
             ms, pms = (median_ms(lambda: fn(hidden, emb, mask)),
                        median_ms(lambda: plain(hidden, emb, mask)))
             gms = graph_ms(lambda: fn(hidden, emb, mask))
             outb = 8 * n * (v // 128) if row == 10 else 4 * (n * v + 2 * n + n * (v // 128))
             nbytes = 2 * v * dm + 2 * n * dm + n * v + outb
             bms, by = bound(nbytes, bf16_ops=2 * n * v * dm)
-            per_call = ("1 kernel per call (profiler)" if launches else
-                        "kernels not counted (the profiler recorded no device activity)")
-            log(f"  {name} N={n}: {per_call}; kernel {ms:.4f} ms, plain "
+            log(f"  {name} N={n}: kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms (median of 30); device {gms:.4f} ms (CUDA graph of 20, L2 "
                 f"warm); bound {bms:.4f} ms ({by}); {nbytes / gms / 1e6:.1f} GB/s")
             if n == LM_HEAD_RECORD[name]:
                 out[name] = (err, ms, pms, bms, by, None)
-    if not counted:
-        fail("rows 10, 11: the profiler recorded no device activity in any window")
     n, d, v2 = 20, 64, 256
     gt = torch.Generator().manual_seed(SEED + 3)
     hidden = torch.randint(-2, 3, (n, d), generator=gt).to(device, torch.bfloat16)
@@ -721,14 +742,109 @@ def phase_lm_head(device, g) -> dict:
     return out
 
 
+def ragged_height(b, w, cin, m, cout, es, proj) -> int:
+    """A height near the stage's own whose last band the plan leaves
+    ragged (H % TR != 0)."""
+    from mmdx_tpu_torch.ops import bottleneck as bn
+
+    for h in range(w + 2, w - 6, -1):
+        if h % bn.tc_plan(b, h, w, cin, m, cout, es, proj).tr:
+            return h
+    fail(f"no ragged band height near {w}")
+
+
+def row13_cases(ragged: bool = True) -> list:
+    """(label, B, H, W, C, M): row 13 at both stages of the turbo route at
+    B=32 (the first is the kernel's record) and B=4 (the engine), and a
+    ragged last band at each stage."""
+    cases = [(f"stage {s} B={b}", b, hw, hw, c, m)
+             for b in (32, 4) for s, hw, c, m in ((1, 56, 256, 64), (2, 28, 512, 128))]
+    for s, hw, c, m in ((1, 56, 256, 64), (2, 28, 512, 128)) if ragged else ():
+        h = ragged_height(32, hw, c, m, c, 1, False)
+        cases.append((f"stage {s} B=32 ragged H={h}", 32, h, hw, c, m))
+    return cases
+
+
+def row12_cases(ragged: bool = True) -> list:
+    """(label, B, H, W, Cin, M, Cout, projection): row 12 at the three
+    shapes of the fused tower (stage 1 block 0 with its projection, stage 1
+    blocks 1-2, stage 2 blocks 1-3) at B=32 (the first is the kernel's
+    record), two at B=4, and a ragged last band at each stage."""
+    shapes = (("stage 1 block 0 (projection)", 56, 64, 64, 256, True),
+              ("stage 1 identity", 56, 256, 64, 256, False),
+              ("stage 2 identity", 28, 512, 128, 512, False))
+    cases = [(f"{label} B=32", 32, hw, hw, cin, m, cout, proj)
+             for label, hw, cin, m, cout, proj in shapes]
+    cases += [(f"{label} B=4", 4, hw, hw, cin, m, cout, proj)
+              for label, hw, cin, m, cout, proj in shapes[::2]]
+    for label, hw, cin, m, cout, proj in shapes[::2] if ragged else ():
+        h = ragged_height(32, hw, cin, m, cout, 2, proj)
+        cases.append((f"{label} B=32 ragged H={h}", 32, h, hw, cin, m, cout, proj))
+    return cases
+
+
+def row13_operands(g, device, b, h, w, c, m):
+    """Row 13's input and arguments from ``g``: s8 x, the weights as views
+    of K-major storage (as the int8 tower's qparams hold them)."""
+    import torch
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)
+
+    def uniform(n, lo, hi):
+        return (lo + (hi - lo) * torch.rand(n, generator=g)).to(device)
+
+    args = dict(w1=s8(m, c).t(), k1=uniform(m, 1e-4, 1e-3), b1=uniform(m, -2, 2),
+                w2flat=s8(m, 9 * m).t(), k2=uniform(m, 1e-5, 1e-4), b2=uniform(m, -2, 2),
+                w3=s8(c, m).t(), k3=uniform(c, 1e-4, 1e-3), b3=uniform(c, -2, 2), kx=0.7)
+    return s8(b, h, w, c), args
+
+
+def row12_operands(g, device, b, h, w, cin, m, cout, proj, dt):
+    """Row 12's input and arguments from ``g`` in ``dt``: the weights as
+    views of K-major storage (as ``Bottleneck.fused_operands`` lays them
+    out in bf16), scaled by fan-in; f32 biases."""
+    import torch
+
+    def wk(n, k):
+        return (torch.randn(n, k, generator=g) * k ** -0.5).to(device, dt)
+
+    def vec(n):
+        return (torch.randn(n, generator=g) * 0.1).to(device)
+
+    x = torch.randn(b, h, w, cin, generator=g).to(device, dt)
+    # w2: the HWIO view of [M, 9M] (ops/bottleneck.kmajor_hwio)
+    args = dict(w1=wk(m, cin).t(), b1=vec(m), w2=wk(m, 9 * m).t().reshape(3, 3, m, m), b2=vec(m),
+                w3=wk(cout, m).t(), b3=vec(cout))
+    if proj:
+        args.update(wp=wk(cout, cin).t(), bp=vec(cout))
+    return x, args
+
+
+def row13_work(b, h, w, c, m):
+    """(bytes moved once, int8 operations) of one row-13 call."""
+    px = b * h * w
+    return (2 * px * c + 2 * c * m + 9 * m * m + 4 * (4 * m + 2 * c),
+            2 * px * (2 * c * m + 9 * m * m))
+
+
+def row12_work(b, h, w, cin, m, cout, proj, es):
+    """(bytes moved once, operations) of one row-12 call in ``es``-byte
+    elements."""
+    px = b * h * w
+    macs = cin * m + 9 * m * m + m * cout + (cin * cout if proj else 0)
+    return es * px * (cin + cout) + es * macs + 4 * (2 * m + 2 * cout), 2 * px * macs
+
+
 def phase_route_kernels(device, g) -> dict:
     """Row 9 (flash attention) at BERT-base widths, B=32 and B=4, L=512 and
     344, q/k/v read as head views of a merged projection, a key-mask bias,
     against scaled_dot_product_attention as the library call; row 13 (int8
-    fused bottleneck) at stage 1 and stage 2 shapes, B=32, bit-equal; row 12
-    (bf16 fused bottleneck) at stage 1 block 0 (projection) and a stage-2
-    identity block, B=32; row 17 (fused preprocessing) at B=32, 512x512,
-    gray and RGB. -> the record of the first shape of each."""
+    fused bottleneck) at ``row13_cases``, bit-equal; row 12 (bf16 and f32
+    fused bottleneck) at ``row12_cases``, both with the device time from a
+    CUDA graph of 20 calls beside the CUDA-event time; row 17 (fused
+    preprocessing) at B=32, 512x512, gray and RGB. -> the record of the
+    first shape of each."""
     import torch
     import torch.nn.functional as F
 
@@ -804,56 +920,44 @@ def phase_route_kernels(device, g) -> dict:
             f"time per call (CUDA graph of 20): kernel {gms:.4f} ms, library {glib:.4f} ms")
         record("flash_attention", rec, label)
 
-    def s8(*shape):
-        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)
-
-    def uniform(n, lo, hi):
-        return (lo + (hi - lo) * torch.rand(n, generator=g)).to(device)
-
-    for stage, b, hw, c, m in ((1, 32, 56, 256, 64), (2, 32, 28, 512, 128)):
-        x = s8(b, hw, hw, c)
-        args = dict(w1=s8(c, m), k1=uniform(m, 1e-4, 1e-3), b1=uniform(m, -2, 2),
-                    w2flat=s8(9 * m, m), k2=uniform(m, 1e-5, 1e-4), b2=uniform(m, -2, 2),
-                    w3=s8(m, c), k3=uniform(c, 1e-4, 1e-3), b3=uniform(c, -2, 2), kx=0.7)
-        log(f"row 13 fused_bottleneck_int8: stage {stage}, x [{b}, {hw}, {hw}, {c}] s8, M={m}")
-        err = compare_exact(f"row 13 stage {stage}", ib.fused_bottleneck_int8(x, **args),
+    for label, b, h, w, c, m in row13_cases():
+        x, args = row13_operands(g, device, b, h, w, c, m)
+        plan = bn.tc_plan(b, h, w, c, m, c, 1, False)
+        log(f"row 13 fused_bottleneck_int8: {label}, x [{b}, {h}, {w}, {c}] s8, M={m}; "
+            f"plan {tuple(plan)}")
+        err = compare_exact(f"row 13 {label}", ib.fused_bottleneck_int8(x, **args),
                             ib.fused_bottleneck_int8_plain(x, **args))
         ms = median_ms(lambda: ib.fused_bottleneck_int8(x, **args))
         pms = median_ms(lambda: ib.fused_bottleneck_int8_plain(x, **args))
-        px = b * hw * hw
-        nbytes = 2 * px * c + 2 * c * m + 9 * m * m + 4 * (4 * m + 2 * c)
-        ops = 2 * px * (2 * c * m + 9 * m * m)
+        gms = graph_ms(lambda: ib.fused_bottleneck_int8(x, **args))
+        nbytes, ops = row13_work(b, h, w, c, m)
         rec = (err, ms, pms) + bound(nbytes, int8_ops=ops) + (None,)
-        log(f"  achieved {ops / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.1f} GB/s")
-        record("int8_bottleneck", rec, f"row 13 stage {stage}")
+        log(f"  device time per call (CUDA graph of 20) {gms:.4f} ms: {ops / gms / 1e9:.1f} "
+            f"TOP/s, {nbytes / gms / 1e6:.1f} GB/s, {rec[3] / gms:.1%} of the bound")
+        record("int8_bottleneck", rec, f"row 13 {label}")
 
-    for label, b, hw, cin, m, cout, proj in (
-            ("stage 1 block 0 (projection)", 32, 56, 64, 64, 256, True),
-            ("stage 2 identity block", 32, 28, 512, 128, 512, False)):
-        x = torch.randn(b, hw, hw, cin, generator=g).to(device, bf)
-
-        def w(*shape, fan):
-            return (torch.randn(*shape, generator=g) * fan ** -0.5).to(device, bf)
-
-        def vec(n):
-            return (torch.randn(n, generator=g) * 0.1).to(device)
-
-        args = dict(w1=w(cin, m, fan=cin), b1=vec(m), w2=w(3, 3, m, m, fan=9 * m), b2=vec(m),
-                    w3=w(m, cout, fan=m), b3=vec(cout))
-        if proj:
-            args.update(wp=w(cin, cout, fan=cin), bp=vec(cout))
-        log(f"row 12 fused_bottleneck: {label}, x [{b}, {hw}, {hw}, {cin}] bf16, M={m}, "
-            f"Cout={cout}")
-        with full_f32():
-            err = compare(f"row 12 {label}", bn.fused_bottleneck(x, **args),
-                          bn.fused_bottleneck_plain(x, **args))
-            pms = median_ms(lambda: bn.fused_bottleneck_plain(x, **args))
-        ms = median_ms(lambda: bn.fused_bottleneck(x, **args))
-        px = b * hw * hw
-        macs = cin * m + 9 * m * m + m * cout + (cin * cout if proj else 0)
-        nbytes = 2 * px * (cin + cout) + 2 * macs + 4 * (2 * m + 2 * cout)
-        record("bottleneck", (err, ms, pms) + bound(nbytes, bf16_ops=2 * px * macs) + (None,),
-               f"row 12 {label}")
+    for label, b, h, w, cin, m, cout, proj in row12_cases():
+        for dt in (bf, torch.float32):
+            x, args = row12_operands(g, device, b, h, w, cin, m, cout, proj, dt)
+            name = f"row 12 {label} {str(dt)[6:]}"
+            plan = bn.bottleneck_plan(b, h, w, cin, m, cout, dt, proj)
+            log(f"row 12 fused_bottleneck: {label}, x [{b}, {h}, {w}, {cin}] {str(dt)[6:]}, "
+                f"M={m}, Cout={cout}; plan {tuple(plan)}")
+            with full_f32():
+                err = compare(name, bn.fused_bottleneck(x, **args),
+                              bn.fused_bottleneck_plain(x, **args))
+                pms = median_ms(lambda: bn.fused_bottleneck_plain(x, **args))
+            ms = median_ms(lambda: bn.fused_bottleneck(x, **args))
+            gms = graph_ms(lambda: bn.fused_bottleneck(x, **args))
+            nbytes, ops = row12_work(b, h, w, cin, m, cout, proj, x.element_size())
+            rec = (err, ms, pms) + (bound(nbytes, bf16_ops=ops) if dt == bf
+                                    else bound(nbytes, f32_ops=ops)) + (None,)
+            log(f"  device time per call (CUDA graph of 20) {gms:.4f} ms: "
+                f"{ops / gms / 1e9:.1f} TFLOP/s, {rec[3] / gms:.1%} of the bound")
+            if dt == bf:
+                record("bottleneck", rec, name)
+            else:
+                log(f"  {name} kernel {ms:.4f} ms, plain {pms:.4f} ms (median of 30)")
 
     for ch in (3, 1):
         b, side, crop = 32, 512, 224
@@ -1437,6 +1541,37 @@ def phase_long_text(device, bundle, images, counters) -> dict:
     return total
 
 
+def phase_contracts(device) -> None:
+    """Launch or raise, at construction: an engine built on the card in fast
+    or turbo mode from the narrow test configuration (16-wide heads) is
+    refused when it is built, naming the text encoder, K1 and the mode or
+    switch; a CPU engine on the same bundle builds and answers."""
+    import numpy as np
+
+    from mmdx_tpu_torch.checkpoints import bridge
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = bridge.small_config()
+    narrow = bridge.bundle_from_variables(bridge.random_state(cfg, SEED), cfg)
+    for mode, switch in (("fast", "fast mode"), ("turbo", "MMDX_TEXT_INT8")):
+        try:
+            InferenceEngine(narrow, mode=mode, device=device)
+        except ValueError as err:
+            msg = str(err)
+            if not all(w in msg for w in ("text encoder", "K1", switch)):
+                fail(f"contracts: the {mode} engine's refusal does not name the layer, K1 "
+                     f"and {switch!r}: {msg}")
+            log(f"  {mode} engine on the card from 16-wide heads refused at construction: "
+                f"{msg[:160]}...")
+            continue
+        fail(f"contracts: a {mode} engine on the card from 16-wide heads was built")
+    cpu = InferenceEngine(narrow, mode="fast", device="cpu")
+    img = np.random.default_rng(SEED).integers(0, 256, (70, 70, 3), dtype=np.uint8)
+    probs, _, _ = cpu.classify_batch([img], TEXTS[:1])
+    check_probs("contracts: CPU engine from 16-wide heads", probs)
+    log("  the same bundle on the CPU: engine built, 13 finite probabilities")
+
+
 def phase_fused_blocks(device, bundle, images, counters, turbo) -> dict:
     """The fused-block routes at full width: a turbo engine with
     MMDX_INT8_FUSED_BLOCKS=1,2 on the unfused turbo engine's int8 tower (5
@@ -1606,6 +1741,8 @@ def main() -> int:
         f"beam {gen.num_beams}, {gen.min_new_tokens}-{gen.max_new_tokens} new tokens")
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(4)]
+    log("contracts: the kernels' widths checked at engine construction")
+    phase_contracts(device)
     counters = launch_counters()
     log("fast path")
     fast_launches, fast, fast_probs, z4 = phase_fast(device, bundle, images, counters)

@@ -69,11 +69,17 @@ SIGNATURES = {
     "mmdx_flash_attn": [_P] * 5 + [_L] * 16 + [_I] * 5 + [_F, _I, _P],
     # the same without is_bf16 (bf16 only, tensor cores)
     "mmdx_flash_attn_tc": [_P] * 5 + [_L] * 16 + [_I] * 5 + [_F, _P],
-    # x, w1, k1, b1, w2, k2, b2, w3, k3, b3, kx, out, B, H, W, C, M, TR, stream
-    "mmdx_int8_bottleneck": [_P] * 10 + [_F, _P] + [_I] * 6 + [_P],
+    # x, w1, ld1, k1, b1, w2, ld2, k2, b2, w3, ld3, k3, b3, kx, out, B, H, W,
+    # C, M, TR, stream (weights K-major, row pitches in elements)
+    "mmdx_int8_bottleneck": [_P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _F, _P]
+                            + [_I] * 6 + [_P],
     # x, w1, b1, w2, b2, w3, b3, wp, bp, out, B, H, W, Cin, M, Cout, TR,
-    # is_bf16, stream
-    "mmdx_bottleneck": [_P] * 10 + [_I] * 8 + [_P],
+    # stream (f32)
+    "mmdx_bottleneck": [_P] * 10 + [_I] * 7 + [_P],
+    # x, w1, ld1, b1, w2, ld2, b2, w3, ld3, b3, wp, ldp, bp, out, B, H, W,
+    # Cin, M, Cout, TR, stream (bf16, weights K-major)
+    "mmdx_bottleneck_tc": [_P, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P]
+                          + [_I] * 7 + [_P],
     # img, kh, kw, hlo, hhi, wlo, whi, scale, shift, out, B, H, W, C, crop,
     # TRo, w0, w1, stream
     "mmdx_preprocess": [_P] * 10 + [_I] * 8 + [_P],

@@ -11,22 +11,25 @@
 // product summed on its own, then added to acc), the biases f32, x1 and x2
 // rounded to T, zero padding at the image edges.
 //
-// Design: one block of 256 threads per (image, band of TR output rows), all
-// three convs in the block. conv1 is recomputed for the band and its two
-// halo rows into a zero-bordered shared tile x1 [(TR+2)][(W+2)][M] of T (the
-// border is the 3x3 conv's SAME padding); conv2 reads the nine taps of that
-// tile into x2 [TR*W][M] of T in shared memory; conv3 and the shortcut read
-// x2 and x and write the band's outputs once. Each thread owns 4 pixels x 4
-// output channels and accumulates with f32 FMAs over eight input channels at
-// a time (one 16-byte load of x per pixel).
+// bf16 (mmdx_bottleneck_tc): the implicit GEMM of csrc/implicit_gemm.cuh on
+// the tensor cores (mma.sync m16n8k16, f32 accumulators, a second set for
+// the tap being summed and for the projection), weights K-major and streamed
+// through a cp.async ring. What bounds it on the H100: at stage 1 block 0
+// (56x56, Cin 64, M 64, Cout 256, projection) and B=32 the block is ~15
+// GFLOP against ~51 MB of bf16 input and output: 0.015 ms of bytes and of
+// bf16 tensor-core operations each; the halo rows' conv1 (TR+2 rows for TR)
+// and the weights read from L2 once per band and pass of rows add to that.
 //
-// What bounds it on the H100: at stage 1 (56x56, M 64, Cout 256) and B=32 a
-// block is ~14.8 GFLOP against ~51 MB of bf16 input and output: 0.015 ms of
-// bytes and 0.015 ms of bf16 tensor-core operations. This version computes
-// in f32 on the CUDA cores (the f32 rate, 67 TFLOP/s, not the tensor cores'),
-// so it is bound by operations well above that floor; moving the products
-// to the tensor cores (wmma/wgmma over the shared tiles) is later work.
+// f32 (mmdx_bottleneck, kept from the first port): TF32 would change the
+// numbers, so it stays on the CUDA cores. One block of 256 threads per
+// (image, band of TR output rows); conv1 is recomputed for the band and its
+// two halo rows into a zero-bordered shared tile x1 [(TR+2)][(W+2)][M]; conv2
+// reads the nine taps of that tile into x2 [TR*W][M]; conv3 and the shortcut
+// read x2 and x and write the band's outputs once. Each thread owns 4 pixels
+// x 4 output channels and accumulates with f32 FMAs over eight input
+// channels at a time; it is bound by the f32 rate (67 TFLOP/s).
 #include "common.cuh"
+#include "implicit_gemm.cuh"
 
 namespace {
 
@@ -209,21 +212,57 @@ int launch_bottleneck(const BlockParams& p, int B, void* stream) {
 
 }  // namespace
 
-// x, out [B, H, W, Cin|Cout] (T = bf16 if is_bf16, else f32); w1 [Cin, M],
-// w2 [3, 3, M, M] (HWIO), w3 [M, Cout], wp [Cin, Cout] or null, all T; b1,
-// b2 [M], b3, bp [Cout] f32; TR output rows per block. Cin, M, Cout
-// multiples of 8; with wp null, Cin == Cout.
+// x, out [B, H, W, Cin|Cout] f32; w1 [Cin, M], w2 [3, 3, M, M] (HWIO), w3
+// [M, Cout], wp [Cin, Cout] or null, all f32 row-major; b1, b2 [M], b3, bp
+// [Cout] f32; TR output rows per block. Cin, M, Cout multiples of 8; with wp
+// null, Cin == Cout.
 MMDX_EXPORT int mmdx_bottleneck(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, const void* w3,
                                 const void* b3, const void* wp, const void* bp, void* out,
                                 int B, int H, int W, int Cin, int M, int Cout, int TR,
-                                int is_bf16, void* stream) {
+                                void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || TR <= 0 || Cin % 8 || M % 8 || Cout % 8 ||
       (wp == nullptr && Cin != Cout))
     return static_cast<int>(cudaErrorInvalidValue);
   BlockParams p{x, w1, static_cast<const float*>(b1), w2, static_cast<const float*>(b2),
                 w3, static_cast<const float*>(b3), wp, static_cast<const float*>(bp), out,
                 H, W, Cin, M, Cout, TR};
-  return is_bf16 ? launch_bottleneck<bf16>(p, B, stream)
-                 : launch_bottleneck<float>(p, B, stream);
+  return launch_bottleneck<float>(p, B, stream);
+}
+
+// x, out [B, H, W, Cin|Cout] bf16; w1 [M][ld1], w2 [M][ld2] (K = 9M in (ky,
+// kx, ci) order), w3 [Cout][ld3], wp [Cout][ldp] or null: bf16, K-major (K
+// contiguous in each row); b1, b2 [M], b3, bp [Cout] f32; TR output rows per
+// block. Cin, M, Cout multiples of 64; with wp null, Cin == Cout.
+MMDX_EXPORT int mmdx_bottleneck_tc(const void* x, const void* w1, long long ld1,
+                                   const void* b1, const void* w2, long long ld2,
+                                   const void* b2, const void* w3, long long ld3,
+                                   const void* b3, const void* wp, long long ldp,
+                                   const void* bp, void* out, int B, int H, int W, int Cin,
+                                   int M, int Cout, int TR, void* stream) {
+  ig::Params p{};
+  p.x = x;
+  p.w1 = w1;
+  p.w2 = w2;
+  p.w3 = w3;
+  p.wp = wp;
+  p.ld1 = ld1;
+  p.ld2 = ld2;
+  p.ld3 = ld3;
+  p.ldp = ldp;
+  p.b1 = static_cast<const float*>(b1);
+  p.b2 = static_cast<const float*>(b2);
+  p.b3 = static_cast<const float*>(b3);
+  p.bp = static_cast<const float*>(bp);
+  p.out = out;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.M = M;
+  p.Cout = Cout;
+  p.TR = TR;
+  const bool proj = wp != nullptr;
+  if (!ig::takes(p, B, 2, proj)) return static_cast<int>(cudaErrorInvalidValue);
+  return proj ? ig::launch<ig::Bf16, true>(p, B, stream)
+              : ig::launch<ig::Bf16, false>(p, B, stream);
 }

@@ -22,7 +22,8 @@ folded biases kept f32. As in the JAX package ``use_folded_bn`` wins
 (``:73-76``), and the engine sets it in fast and turbo mode, so no engine
 mode runs the fused blocks: their path is an image encoder built with that
 configuration. The route is fixed when the encoder is built, and each fused
-block makes its kernel operands once (``Bottleneck.fused_operands``).
+block makes its kernel operands once (``Bottleneck.fused_operands``; in bf16
+K-major, the layout the tensor-core kernel reads).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from torch import nn
 
 from mmdx_tpu_torch.config import ImageEncoderConfig
 from mmdx_tpu_torch.models.layers import Dense, param
-from mmdx_tpu_torch.ops.bottleneck import fused_bottleneck
+from mmdx_tpu_torch.ops.bottleneck import fused_bottleneck, kmajor_hwio
 
 RESNET50_STAGES = (3, 4, 6, 3)
 
@@ -70,20 +71,30 @@ class Bottleneck(nn.Module):
 
     def fused_operands(self, dt: torch.dtype) -> tuple:
         """The fused kernel's operands: [Cin, M], [3, 3, M, M] and [M, Cout]
-        weights (and the [Cin, Cout] projection) in ``dt``, biases f32. Made
-        once and kept; made again only when a weight changes (a cast, a move
-        or a load gives it new storage or a new version)."""
+        weights (and the [Cin, Cout] projection) in ``dt``, biases f32. In
+        bf16 each weight is a view of K-major storage ([Cout, Cin], and
+        [M, 9M] for the 3x3 conv: the OIHW rows with K contiguous), which the
+        tensor-core kernel reads in place; in f32 row-major, as the CUDA-core
+        body reads them. Made once and kept; made again only when a weight
+        changes (a cast, a move or a load gives it new storage or a new
+        version)."""
         key = (dt, *((p.device, p.data_ptr(), p._version)
                      for c in self.convs() for p in (c.weight, c.bias)))
         if key != self._operands_key:
-            def mat(conv):  # 1x1 OIHW -> [Cin, Cout]
-                return conv.weight[:, :, 0, 0].t().to(dt).contiguous()
+            kmajor = dt == torch.bfloat16
 
+            def mat(conv):  # 1x1 OIHW [Cout, Cin] -> [Cin, Cout]
+                w = conv.weight[:, :, 0, 0].to(dt).clone(memory_format=torch.contiguous_format)
+                return w.t() if kmajor else w.t().contiguous()
+
+            w2 = self.conv2.weight  # OIHW [M, M, 3, 3]
+            m = w2.shape[0]
+            w2 = (kmajor_hwio(w2.permute(0, 2, 3, 1).to(dt).contiguous().reshape(m, 9 * m), m)
+                  if kmajor else w2.permute(2, 3, 1, 0).to(dt).contiguous())
             proj = self.downsample
             self._operands = (
-                mat(self.conv1), self.conv1.bias.float(),
-                self.conv2.weight.permute(2, 3, 1, 0).to(dt).contiguous(),
-                self.conv2.bias.float(), mat(self.conv3), self.conv3.bias.float(),
+                mat(self.conv1), self.conv1.bias.float(), w2, self.conv2.bias.float(),
+                mat(self.conv3), self.conv3.bias.float(),
                 None if proj is None else mat(proj),
                 None if proj is None else proj.bias.float())
             self._operands_key = key

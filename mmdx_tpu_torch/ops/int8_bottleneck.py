@@ -16,11 +16,17 @@ the kernel). The TPU kernel's width-padded flat layout (``pad_wp``/
 ``unpad_wp``) and its g images per program are sublane fixes; here the
 layout is plain NHWC, and the tests convert between the two.
 
-Kernel (CUDA C++, ``csrc/int8_bottleneck.cu``), one launch: a block per
-(image, band of output rows) runs conv1 over the band and its halo rows, the
-3x3 conv as an implicit GEMM over the shared-memory conv1 tile, and conv3
-with the shortcut and the final requant; a1 and a2 stay in shared memory.
-conv1 runs inside the kernel. The source notes what bounds it.
+Kernel (CUDA C++, ``csrc/int8_bottleneck.cu``), one launch: the implicit
+GEMM of ``csrc/implicit_gemm.cuh`` (shared with row 12) on the tensor cores,
+s8 MMAs with s32 accumulators. A block per (image, band of output rows) runs
+conv1 over the band and its halo rows into a shared-memory tile, the 3x3
+conv as nine shifted views of that tile (no im2col), and conv3 with the
+shortcut and the final requant; a1 and a2 stay in shared memory. The
+weights are read K-major in place: ``w1 [C, M]``, ``w2flat [9M, M]`` and
+``w3 [M, C]`` are the transposed views of the qparams' GEMM operands
+(``"wk"`` [co, K]), which ``fold_block_epilogues`` hands out without a
+copy. ``ops/bottleneck.tc_plan`` picks the band height;
+``band_walk_int8`` walks the kernel's order on the CPU for the tests.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
@@ -31,11 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from mmdx_tpu_torch import _build
+from mmdx_tpu_torch.ops.bottleneck import band_walk, kmajor_ld, tc_plan
 from mmdx_tpu_torch.ops.int8_gemm import div_exact, exact_matmul_s8
 
 F32 = torch.float32
 I8 = torch.int8
-BAND_ROWS = 4  # output rows per block
 
 
 def _q(y) -> torch.Tensor:
@@ -64,27 +70,30 @@ def fused_bottleneck_int8_plain(x, w1, k1, b1, w2flat, k2, b2, w3, k3, b3, kx):
 
 def fused_bottleneck_int8(x, w1, k1, b1, w2flat, k2, b2, w3, k3, b3, kx):
     """x s8 [B, H, W, C] at the block's input scale; w1 s8 [C, M], w2flat
-    s8 [9M, M] ((ky, kx, ci) tap-major), w3 s8 [M, C]; k1, b1, k2, b2 f32
+    s8 [9M, M] ((ky, kx, ci) tap-major), w3 s8 [M, C] (on the card: views of
+    K-major storage, ``[M, C]``, ``[M, 9M]``, ``[C, M]`` rows with K
+    contiguous, as ``fold_block_epilogues`` gives them); k1, b1, k2, b2 f32
     [M]; k3, b3 f32 [C]; kx the f32 shortcut fold -> s8 [B, H, W, C] at the
     block's output scale."""
     if x.device.type == "cpu":
         return fused_bottleneck_int8_plain(x, w1, k1, b1, w2flat, k2, b2, w3, k3, b3, kx)
     b, h, w, c = x.shape
     m = w1.shape[1]
-    if c % 4 or m % 4:
-        raise ValueError(f"fused_bottleneck_int8: channels {c}, {m} must be multiples of 4")
     for t, name, dtype, shape in (
-            (x, "x", I8, (b, h, w, c)), (w1, "w1", I8, (c, m)), (k1, "k1", F32, (m,)),
-            (b1, "b1", F32, (m,)), (w2flat, "w2flat", I8, (9 * m, m)),
-            (k2, "k2", F32, (m,)), (b2, "b2", F32, (m,)), (w3, "w3", I8, (m, c)),
-            (k3, "k3", F32, (c,)), (b3, "b3", F32, (c,))):
+            (x, "x", I8, (b, h, w, c)), (k1, "k1", F32, (m,)), (b1, "b1", F32, (m,)),
+            (k2, "k2", F32, (m,)), (b2, "b2", F32, (m,)), (k3, "k3", F32, (c,)),
+            (b3, "b3", F32, (c,))):
         _build.require(t, f"fused_bottleneck_int8.{name}", dtype, shape)
+    plan = tc_plan(b, h, w, c, m, c, 1, False)
+    ld1 = kmajor_ld(w1, "fused_bottleneck_int8.w1", I8, c, m)
+    ld2 = kmajor_ld(w2flat, "fused_bottleneck_int8.w2flat", I8, 9 * m, m)
+    ld3 = kmajor_ld(w3, "fused_bottleneck_int8.w3", I8, m, c)
     out = torch.empty_like(x)
     _build.check(_build.lib().mmdx_int8_bottleneck(
-        x.data_ptr(), w1.data_ptr(), k1.data_ptr(), b1.data_ptr(), w2flat.data_ptr(),
-        k2.data_ptr(), b2.data_ptr(), w3.data_ptr(), k3.data_ptr(), b3.data_ptr(),
-        float(kx), out.data_ptr(), b, h, w, c, m, BAND_ROWS, _build.stream(x)),
-        "fused_bottleneck_int8")
+        x.data_ptr(), w1.data_ptr(), ld1, k1.data_ptr(), b1.data_ptr(), w2flat.data_ptr(),
+        ld2, k2.data_ptr(), b2.data_ptr(), w3.data_ptr(), ld3, k3.data_ptr(),
+        b3.data_ptr(), float(kx), out.data_ptr(), b, h, w, c, m, plan.tr,
+        _build.stream(x)), "fused_bottleneck_int8")
     fused_bottleneck_int8.launches += 1
     return out
 
@@ -106,11 +115,48 @@ def fold_block_epilogues(d: dict, s_in: float, s1: float, s2: float, s_out: floa
     (s/s_next)``, ``B = b/s_next``."""
     c1, c2, c3 = d["conv1"], d["conv2"], d["conv3"]
     m = c1["w"].shape[-1]
-    # the kernel reads [K, N] rows; the qparams hold each weight once, K-major
-    # ("w" is a view of "wk"), so these three are laid out per call
+    # the weights are the HWIO views of the K-major GEMM operands ("w" of
+    # "wk"): [C, M], [9M, M] and [M, C] views, no copy
     return dict(
-        w1=c1["w"][0, 0].contiguous(), k1=c1["ws"] * _f32_ratio(s_in, s1),
-        b1=div_exact(c1["b"], s1), w2flat=c2["w"].reshape(9 * m, m).contiguous(),
+        w1=c1["w"][0, 0], k1=c1["ws"] * _f32_ratio(s_in, s1),
+        b1=div_exact(c1["b"], s1), w2flat=c2["w"].reshape(9 * m, m),
         k2=c2["ws"] * _f32_ratio(s1, s2), b2=div_exact(c2["b"], s2),
-        w3=c3["w"][0, 0].contiguous(), k3=c3["ws"] * _f32_ratio(s2, s_out),
+        w3=c3["w"][0, 0], k3=c3["ws"] * _f32_ratio(s2, s_out),
         b3=div_exact(c3["b"], s_out), kx=_f32_ratio(s_in, s_out))
+
+
+class S8Walk:
+    """``band_walk``'s s8 arithmetic: exact integer sums, in any order; the
+    requant epilogues of the plain version."""
+    tap_acc = False
+    out_dtype = I8
+
+    def __init__(self, k1, b1, k2, b2, k3, b3, kx):
+        self.k1, self.b1, self.k2, self.b2 = k1, b1, k2, b2
+        self.k3, self.b3, self.kx = k3, b3, torch.tensor(kx, dtype=F32)
+
+    def dot(self, a, wk):
+        return a.to(torch.int64) @ wk.to(torch.int64).t()
+
+    def init2(self, n, rows):
+        return torch.zeros((rows, n.stop - n.start), dtype=torch.int64)
+
+    def store1(self, acc, n):
+        return _q(torch.relu(acc.to(F32) * self.k1[n] + self.b1[n]))
+
+    def store2(self, acc, n):
+        return _q(torch.relu(acc.to(F32) * self.k2[n] + self.b2[n]))
+
+    def store3(self, acc, accp, xs, n):
+        return _q(torch.relu(acc.to(F32) * self.k3[n] + self.b3[n] + xs.to(F32) * self.kx))
+
+
+def band_walk_int8(x, w1, k1, b1, w2flat, k2, b2, w3, k3, b3, kx, plan=None):
+    """``ops/bottleneck.band_walk`` with ``fused_bottleneck_int8``'s
+    arguments, on the CPU, on the plan of the card's launch unless one is
+    given: the kernel's order of bands, halo rows, taps and K slices."""
+    b, h, w, c = x.shape
+    m = w1.shape[1]
+    plan = plan or tc_plan(b, h, w, c, m, c, 1, False)
+    return band_walk(x, w1.t(), w2flat.t(), w3.t(), None, plan,
+                     S8Walk(k1, b1, k2, b2, k3, b3, kx))

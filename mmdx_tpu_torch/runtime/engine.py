@@ -42,6 +42,14 @@ configuration with ``max_len`` 512, BERT-base's own limit, buckets texts at
 JAX engine's TPU branch sets them (``engine.py:87-113``): the fused bf16
 bottleneck stays off in every mode.
 
+Launch or raise, at construction: a kernel takes only the widths its tiles
+were written for and never falls back to its plain version on the card, so
+a CUDA engine in fast or turbo mode checks the bundle's widths against the
+contract of every kernel its mode and switches enable and raises there,
+naming the layer, the kernel and the switch (``runtime/contracts.py``; for
+example a bundle with 16-wide heads is refused, since K1 takes heads of 64).
+Parity mode and CPU engines run the plain versions and are never refused.
+
 ``MMDX_GREEDY_FLAT`` and ``MMDX_DECODE_SEGMENTS`` are TPU layout knobs and
 are not ported: greedy always runs over the flat cache at nb = 1, and the
 cache is one full-length buffer. Multi-device serving is not ported yet
@@ -63,6 +71,7 @@ from mmdx_tpu_torch.decode.beam_search import (beam_expand, beam_search,
                                                make_generation_kwargs)
 from mmdx_tpu_torch.decode.greedy import greedy_decode
 from mmdx_tpu_torch.models import resnet_int8 as ri
+from mmdx_tpu_torch.runtime.contracts import check_kernel_contracts
 from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
                                            preprocess_batch_device_gray,
                                            preprocess_exact)
@@ -127,6 +136,10 @@ class InferenceEngine:
             cfg = dataclasses.replace(
                 cfg, text=dataclasses.replace(cfg.text, use_flash_attention=True),
                 image=dataclasses.replace(cfg.image, use_folded_bn=True))
+        if self.kernels and self.device.type == "cuda":
+            check_kernel_contracts(cfg, mode, text_int8=self.text_int8, kv_int8=self.kv_int8,
+                                   fused_lm_head=self.fused_lm_head,
+                                   int8_fused_blocks=self.int8_fused_blocks)
         model = bundle.model.with_config(cfg)
         if mode == "turbo":
             # turbo never runs the bf16 backbone (the int8 tower folds from

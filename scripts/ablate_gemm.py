@@ -1,9 +1,11 @@
 #!/usr/bin/env python
 """Where the time of the wgmma GEMMs goes, on one CUDA card: the bf16 GEMM
 (``csrc/gemm.cu``), with ``--int8`` the int8 GEMM (``csrc/int8_gemm.cu``),
-with ``--lm-head`` the streamed lm head (``csrc/lm_head.cu``, rows 10, 11).
+with ``--lm-head`` the streamed lm head (``csrc/lm_head.cu``, rows 10, 11),
+with ``--bottleneck`` the fused bottlenecks' implicit GEMM
+(``csrc/implicit_gemm.cuh``, rows 12, 13).
 
-    python3 scripts/ablate_gemm.py [--int8 | --lm-head]
+    python3 scripts/ablate_gemm.py [--int8 | --lm-head | --bottleneck]
 
 Builds variants of the port's kernels from copies of ``mmdx_tpu_torch`` in
 a temporary directory, each with one part of the GEMM taken out of its
@@ -25,6 +27,13 @@ source by a text substitution:
                 columns: the same bytes, a 64 KB footprint that stays in L2;
   streaming stores  (lm head) the logits stored with st.global.cs
                 (evict first);
+  no conv2      (bottleneck) the 3x3 conv's nine taps are not run (conv3
+                reads whatever the a2 tile holds);
+  no loads      (bottleneck) no cp.async copy of x rows or weights into the
+                ring (the MMAs read whatever the ring holds);
+  no epilogue   (bottleneck) a1, a2 and the outputs are not stored (the
+                stores stay behind a test the compiler cannot decide, so the
+                MMAs whose sums they would store stay too);
 
 and times each, in turns twice: the bf16 GEMM with the bias epilogue on the
 plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
@@ -32,7 +41,8 @@ plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
 chip_smoke.py's K5 sites (the gray stem at B=32 and B=512, layer1 conv1,
 layer4 conv3 + residual) and at the text blocks' four projections with their
 epilogues at M = 3072: the device time per call from a CUDA graph of 20
-calls (``chip_smoke.graph_ms``); the lm head's greedy at N = 4 and 64 and
+calls (``chip_smoke.graph_ms``); the bottlenecks at B=32, row 12 at stage 1
+block 0 and stage 2, row 13 at stages 1 and 2, as a graph of 20 calls; the lm head's greedy at N = 4 and 64 and
 stats at N = 16, 128 and 256 (T5 vocabulary 32128 x 512), each with L2
 warm (a graph of 20 calls) and cold (a graph of 20 pairs of a 128 MB read
 and a call, less the reads alone). The variants compute wrong numbers; only
@@ -206,6 +216,45 @@ cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
 """
 
 
+BN_MMA = [("""      E::mma(acc[0][2 * j], fa0, fb[j][0], fb[j][1]);
+      E::mma(acc[0][2 * j + 1], fa0, fb[j][2], fb[j][3]);""", "      (void)fb;"),
+          ("""        E::mma(acc[1][2 * j], fa1, fb[j][0], fb[j][1]);
+        E::mma(acc[1][2 * j + 1], fa1, fb[j][2], fb[j][3]);""", "        (void)fa1;")]
+BN_VARIANTS = {
+    "base": (None, None),
+    "no conv2": [("    conv2<E, 2>(p, bd);\n", ""), ("    conv2<E, 1>(p, bd);\n", "")],
+    "no loads": [("""    cp_async16(slot + n * SLOT_PITCH + part * 16,
+               base + (size_t)(n0 + n) * ld_bytes + kb + part * 16);""", "    (void)base;"),
+                 ("    cp_async16(slot + r * SLOT_PITCH + part * 16, src, ok);",
+                  "    (void)src;")],
+    "no epilogue": [(f"E::store({dst} + ", f"if (p.H < 0) E::store({dst} + ")
+                    for dst in ("dst", "a2row", "stage")]
+                   + [("*reinterpret_cast<uint4*>(out + ",
+                       "if (p.H < 0) *reinterpret_cast<uint4*>(out + ")],
+    "no MMA": BN_MMA,
+}
+
+BN_TIME = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+import chip_smoke as cs
+from mmdx_tpu_torch.ops import bottleneck as bn
+from mmdx_tpu_torch.ops import int8_bottleneck as ib
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(cs.SEED)
+parts = []
+for label, hw, cin, m, cout, proj in (("row 12 stage 1 block 0", 56, 64, 64, 256, True),
+                                      ("row 12 stage 2", 28, 512, 128, 512, False)):
+    x, a = cs.row12_operands(g, dev, 32, hw, hw, cin, m, cout, proj, torch.bfloat16)
+    parts.append(f"{label} {cs.graph_ms(lambda: bn.fused_bottleneck(x, **a)) * 1e3:.2f} us")
+for label, hw, c, m in (("row 13 stage 1", 56, 256, 64), ("row 13 stage 2", 28, 512, 128)):
+    x, a = cs.row13_operands(g, dev, 32, hw, hw, c, m)
+    parts.append(f"{label} {cs.graph_ms(lambda: ib.fused_bottleneck_int8(x, **a)) * 1e3:.2f} us")
+cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
+"""
+
 def main() -> int:
     import torch
 
@@ -215,6 +264,7 @@ def main() -> int:
     source, variants, timer = (
         ("int8_gemm.cu", I8_VARIANTS, I8_TIME) if "--int8" in sys.argv[1:]
         else ("lm_head.cu", LM_VARIANTS, LM_TIME) if "--lm-head" in sys.argv[1:]
+        else ("implicit_gemm.cuh", BN_VARIANTS, BN_TIME) if "--bottleneck" in sys.argv[1:]
         else ("gemm.cu", VARIANTS, TIME))
     src = (ROOT / "mmdx_tpu_torch" / "csrc" / source).read_text()
     with tempfile.TemporaryDirectory() as tmp:

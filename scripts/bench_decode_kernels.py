@@ -3,6 +3,7 @@
 GEMM, for any checkout of the PyTorch port, on one CUDA card.
 
     python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans] [--int8] [--lm-head]
+                                            [--bottleneck]
 
 PORT_ROOT (default: this repository) is the directory whose
 ``mmdx_tpu_torch`` is imported, so one call can time an older checkout
@@ -45,6 +46,22 @@ the f32 copy of the embedding, then ``masked_fill`` and ``argmax`` (greedy),
 or the dense ``candidate_topk`` chain (beam-4, its last ``torch.topk``
 without the tie check's host sync); beside row 11, a ``fill_`` of an
 [N, 32128] f32 tensor: the logits' bytes written in address order.
+
+With ``--bottleneck``, only rows 12 and 13 (``fused_bottleneck`` in bf16,
+``fused_bottleneck_int8``) at every shape of their routes, at B=32 and
+B=4 (``chip_smoke.row12_cases`` and ``row13_cases`` without the ragged
+heights): each kernel's device time per call beside the unfused route of
+the same block on the same inputs, also a graph of 20 calls, and the
+bound (``chip_smoke.row12_work``, ``row13_work``) with the kernel's share
+of it. Row 12's unfused route is ``models/resnet.Bottleneck`` unfused
+(cuDNN's three or four convolutions with the bias adds and ReLUs of its
+``forward``), row 13's the int8 tower's ``_conv_s8`` chain (the 3x3 conv's
+im2col and three launches of the int8 GEMM, the residual in the last);
+neither is one PyTorch call. Weights are handed over as views of K-major
+storage where the checkout's wrappers read them so
+(``bottleneck.kmajor_ld``), else contiguous. With ``--plans`` as well (a
+checkout with ``bottleneck.tc_plan``), each shape also runs at every band
+height TR that fits shared memory, beside the one ``tc_plan`` picks.
 
 With ``--ranks`` (a checkout with ``beam_attn.cluster_ranks``), rows 5 and
 6 are also timed at every cluster size, 1, 2, 4 and 8 blocks, pinned by
@@ -102,6 +119,9 @@ def main() -> int:
         return 0
     if "--lm-head" in sys.argv:
         lm_head_kernels(smoke, dev, g, tag)
+        return 0
+    if "--bottleneck" in sys.argv:
+        bottleneck_kernels(smoke, dev, g, tag)
         return 0
     dm, kc, dff, heads = 512, 4, 2048, 8
     for n in (4, 16, 20, 32, 64, 128):
@@ -213,6 +233,104 @@ def int8_kernels(report, randn, dev, g, smoke):
         report(f"K7 M={ab * al} (B={ab} L={al})",
                lambda attn8=attn8, al=al: bert_attn.fused_attention_block_int8(
                    *attn8, seq_len=al, num_heads=heads, eps=1e-12), calls=10)
+
+
+def bottleneck_kernels(smoke, dev, g, tag):
+    """Rows 12 and 13 beside their unfused routes (see the module's note)."""
+    import torch
+
+    from mmdx_tpu_torch.models import resnet_int8 as ri
+    from mmdx_tpu_torch.models.resnet import Bottleneck
+    from mmdx_tpu_torch.ops import bottleneck as bn
+    from mmdx_tpu_torch.ops import int8_bottleneck as ib
+
+    kmajor = hasattr(bn, "kmajor_ld")
+    sweep = "--plans" in sys.argv and hasattr(bn, "tc_plan")
+
+    def sweep_plans(label, module, planner, shape, fn):
+        """``fn`` at every band height that fits shared memory, with
+        ``module.planner`` returning that plan for the call."""
+        b, h, w, _, m, cout, es, proj = shape
+        picked, kept = bn.tc_plan(*shape), getattr(module, planner)
+        for tr in range(1, min(h, bn.MAX_TR) + 1):
+            smem = bn.tc_smem_bytes(w, m, cout, tr, es, proj)
+            if smem > bn.SMEM_LIMIT:
+                continue
+            plan = bn.BottleneckPlan(tr, bn.STAGES[es], 1, (-(-h // tr), b), smem)
+            setattr(module, planner, lambda *a, plan=plan: plan)
+            try:
+                t = smoke.graph_ms(fn)
+            finally:
+                setattr(module, planner, kept)
+            smoke.log(f"[{tag}] {label} TR={tr}{' (picked)' if tr == picked.tr else ''}: "
+                      f"device {t * 1e3:.2f} us")
+
+    def layout(args):  # a parent's wrappers take contiguous [K, N] weights
+        return args if kmajor else {k: v.contiguous() if torch.is_tensor(v) else v
+                                    for k, v in args.items()}
+
+    def line(label, fn, unfused, work, **kind):
+        fn()
+        unfused()
+        torch.cuda.synchronize()
+        k, u = smoke.graph_ms(fn), smoke.graph_ms(unfused)
+        bms, by = smoke.bound(*work[:1], **{kind["ops"]: work[1]})
+        smoke.log(f"[{tag}] {label}: device {k * 1e3:.2f} us per call; unfused route "
+                  f"{u * 1e3:.2f} us (not one call); bound {bms * 1e3:.2f} us ({by}), "
+                  f"{bms / k:.1%} of it")
+
+    for label, b, h, w, c, m in smoke.row13_cases(ragged=False):
+        x, args = smoke.row13_operands(g, dev, b, h, w, c, m)
+        args = layout(args)
+        qc = {}
+        for name, wk in (("conv1", args["w1"]), ("conv2", args["w2flat"]), ("conv3", args["w3"])):
+            wk = wk.t().contiguous()  # [co, K]
+            co = wk.shape[0]
+            shape = (3, 3, m, m) if name == "conv2" else (1, 1, wk.shape[1], co)
+            qc[name] = {"w": ri.hwio_view(wk, shape), "wk": wk,
+                        "ws": (1e-3 + 1e-3 * torch.rand(co, generator=g)).to(dev),
+                        "b": torch.randn(co, generator=g).to(dev)}
+        sx, s1, s2, so = 0.05, 0.04, 0.03, 0.06
+
+        def unfused(x=x, qc=qc, b=b, h=h, w=w):
+            a, _, _ = ri._conv_s8(x, qc["conv1"], sx, s1, 1)
+            a, _, _ = ri._conv_s8(a.reshape(b, h, w, -1), qc["conv2"], s1, s2, 1)
+            return ri._conv_s8(a.reshape(b, h, w, -1), qc["conv3"], s2, so, 1,
+                               res=x.reshape(b * h * w, -1), rs=sx)[0]
+
+        line(f"row 13 {label} x [{b}, {h}, {w}, {c}] M={m}",
+             lambda x=x, args=args: ib.fused_bottleneck_int8(x, **args), unfused,
+             smoke.row13_work(b, h, w, c, m), ops="int8_ops")
+        if sweep:
+            sweep_plans(f"row 13 {label}", ib, "tc_plan", (b, h, w, c, m, c, 1, False),
+                        lambda x=x, args=args: ib.fused_bottleneck_int8(x, **args))
+
+    for label, b, h, w, cin, m, cout, proj in smoke.row12_cases(ragged=False):
+        x, args = smoke.row12_operands(g, dev, b, h, w, cin, m, cout, proj, torch.bfloat16)
+        args = layout(args)
+        blk = Bottleneck(cin, m, 1, proj)
+        with torch.no_grad():
+            for conv, wt in ((blk.conv1, args["w1"]), (blk.conv3, args["w3"])) + (
+                    ((blk.downsample, args["wp"]),) if proj else ()):
+                conv.weight.copy_(wt.t()[:, :, None, None])
+            blk.conv2.weight.copy_(args["w2"].permute(3, 2, 0, 1))
+            for conv, bias in ((blk.conv1, "b1"), (blk.conv2, "b2"), (blk.conv3, "b3")) + (
+                    ((blk.downsample, "bp"),) if proj else ()):
+                conv.bias.copy_(args[bias])
+        blk = blk.to(dev, torch.bfloat16).to(memory_format=torch.channels_last).eval()
+        xn = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+
+        def unfused(blk=blk, xn=xn):
+            with torch.inference_mode():
+                return blk(xn)
+
+        line(f"row 12 {label} x [{b}, {h}, {w}, {cin}] M={m} Cout={cout}",
+             lambda x=x, args=args: bn.fused_bottleneck(x, **args), unfused,
+             smoke.row12_work(b, h, w, cin, m, cout, proj, 2), ops="bf16_ops")
+        if sweep:
+            sweep_plans(f"row 12 {label}", bn, "bottleneck_plan",
+                        (b, h, w, cin, m, cout, 2, proj),
+                        lambda x=x, args=args: bn.fused_bottleneck(x, **args))
 
 
 def lm_head_kernels(smoke, dev, g, tag):

@@ -4,6 +4,7 @@ fast and turbo paths (mmdx_tpu_torch) on one CUDA card.
 
     python3 scripts/profile_torch_port.py
     python3 scripts/profile_torch_port.py --fused-lm-head  # the A/B of 6. alone
+    python3 scripts/profile_torch_port.py --fused-blocks   # 7. alone
 
 Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
 (``pad_to``):
@@ -55,7 +56,15 @@ Full-width random weights (seed 0, as chip_smoke.py), fixed 96-token text
      ms, busy share and, with the switch on, the share of
      ``lm_head_kernel`` (rows 10 and 11) and its launches, one a decode
      step (K4's launches over the decoder layers); the script fails if
-     that share reads 0 or the launches are not one a step.
+     that share reads 0 or the launches are not one a step;
+  7. with ``--fused-blocks`` (alone): the fused bottlenecks end to end,
+     each call profiled, in turns (A, B, B, A): turbo classify of 256x256
+     gray images at B=32 and B=512 without and with
+     ``MMDX_INT8_FUSED_BLOCKS=1,2`` on one calibrated int8 tower, with row
+     13's share and launches (5 a classify); the bf16 image tower at B=32 on
+     224x224 inputs, cuDNN against ``use_fused_bottleneck``, with row 12's
+     share and launches (6 a tower); device ms and busy share of each. The
+     script fails if a share reads 0.
 """
 from __future__ import annotations
 
@@ -166,6 +175,9 @@ def main() -> int:
     engine = InferenceEngine(bundle, mode="fast", device=torch.device("cuda", 0))
     rng = np.random.default_rng(SEED)
     batches = {}
+    if "--fused-blocks" in sys.argv[1:]:
+        fused_blocks_ab(bundle, rng, out_dir, torch.device("cuda", 0))
+        return 0
     only_ab = "--fused-lm-head" in sys.argv[1:]
     for b in (1, 4, 32):
         images = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(b)]
@@ -402,8 +414,8 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
               lambda: fused.classify_batch(images, texts, pad_to=32)))
     ops, _ = profiled("turbo classify RGB B=32 fused blocks",
                       lambda: fused.classify_batch(images, texts, pad_to=32), out_dir)
-    k13 = device_ms(ops, lambda k: "int8_bottleneck_kernel" in k)
-    log(f"--- int8_bottleneck_kernel device time {k13:.3f} ms (5 blocks)")
+    k13 = device_ms(ops, is_row13)
+    log(f"--- row 13 (bottleneck_tc_kernel<S8>) device time {k13:.3f} ms (5 blocks)")
     del fused
 
     cfg = config.image
@@ -420,13 +432,80 @@ def long_text_and_fused_routes(bundle, turbo, rng, out_dir: Path, dev) -> None:
                  ("use_fused_bottleneck", lambda: encoders[0].encode(x)))
         ops, _ = profiled("fused bf16 image tower B=32", lambda: encoders[0].encode(x),
                           out_dir)
-    k12 = device_ms(ops, lambda k: "bottleneck_kernel" in k and "int8" not in k)
-    log(f"--- bottleneck_kernel device time {k12:.3f} ms (6 blocks)")
+    k12 = device_ms(ops, is_row12)
+    log(f"--- row 12 (bottleneck_tc_kernel<Bf16>) device time {k12:.3f} ms (6 blocks)")
 
     batch = torch.from_numpy(rng.integers(0, 256, (32, 512, 512, 3), dtype=np.uint8)).to(dev)
     in_turns("preprocessing B=32 512x512x3",
              ("matmul", lambda: preprocess_batch_device(batch)),
              ("fused", lambda: preprocess_batch_fused(batch)))
+
+
+def is_row13(kernel: str) -> bool:  # csrc/implicit_gemm.cuh, s8
+    return "bottleneck_tc_kernel" in kernel and "S8" in kernel
+
+
+def is_row12(kernel: str) -> bool:  # bf16 on the tensor cores, f32 on the CUDA cores
+    return ("bottleneck_tc_kernel" in kernel and "Bf16" in kernel) or \
+        "bottleneck_kernel<float>" in kernel
+
+
+def fused_blocks_ab(bundle, rng, out_dir: Path, dev) -> None:
+    """Section 7 (``--fused-blocks``)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from mmdx_tpu_torch.models.layers import cast_
+    from mmdx_tpu_torch.models.resnet import ImageEncoder
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    turbo = InferenceEngine(bundle, mode="turbo", device=dev)
+    os.environ["MMDX_INT8_FUSED_BLOCKS"] = "1,2"
+    try:
+        fused = InferenceEngine(bundle, mode="turbo", device=dev)
+    finally:
+        os.environ.pop("MMDX_INT8_FUSED_BLOCKS")
+
+    def ab(label, calls: dict, pred, launches: int, kernel: str):
+        for fn in calls.values():
+            fn()  # warm-up
+        for name in list(calls)[:1] + list(calls)[1:] * 2 + list(calls)[:1]:
+            ops, total = profiled(f"{label} {name}", calls[name], out_dir)
+            if name == list(calls)[1]:
+                ms = device_ms(ops, pred)
+                n = sum(c for k, (_, _, c) in ops.items() if pred(k))
+                share(f"{label} {name}", f"{kernel}, {n} launches", ms, total)
+                if not ms or n != launches:
+                    log(f"FAIL: {label}: {kernel} reads {ms} ms over {n} launches "
+                        f"(expected {launches})")
+                    sys.exit(1)
+
+    for b in (32, 512):
+        images = [rng.integers(0, 256, (256, 256), dtype=np.uint8) for _ in range(b)]
+        texts = [TEXTS[i % len(TEXTS)] for i in range(b)]
+        turbo.classify_batch(images, texts, pad_to=b)  # the first batch calibrates
+        fused._qparams = turbo._ensure_qparams()
+        ab(f"turbo classify gray B={b}",
+           {"unfused": lambda: turbo.classify_batch(images, texts, pad_to=b),
+            "MMDX_INT8_FUSED_BLOCKS=1,2": lambda: fused.classify_batch(images, texts, pad_to=b)},
+           is_row13, 5, "row 13")
+    del turbo, fused
+
+    cfg = bundle.config.image
+    encoders = []
+    for c in (cfg, dataclasses.replace(cfg, use_fused_bottleneck=True)):
+        e = ImageEncoder(c)
+        e.load_state_dict(bundle.model.image_encoder.state_dict())
+        encoders.append(cast_(e, torch.bfloat16).to(dev).eval())
+    x = torch.randn(32, 224, 224, 3, generator=torch.Generator().manual_seed(SEED))
+    x = x.to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        ab("bf16 image tower B=32 at 224",
+           {"cuDNN": lambda: encoders[0].encode(x),
+            "use_fused_bottleneck": lambda: encoders[1].encode(x)}, is_row12, 6, "row 12")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,9 @@ Compiles each source (default: every ``csrc/*.cu``) with the flags of
 parallel, into a temporary object, and prints one line per kernel: its
 demangled name (template arguments, no parameters), registers, stack
 frame, spill stores and loads, and from ``cuobjdump -sass`` the number of
-HGMMA (wgmma on bf16), IGMMA (wgmma on s8), HMMA (mma.sync), UTMALDG (TMA
-tile load) and LDSM (ldmatrix) instructions.
+HGMMA (wgmma on bf16), IGMMA (wgmma on s8), HMMA (mma.sync on bf16), IMMA
+(mma.sync on s8), UTMALDG (TMA tile load), LDGSTS (cp.async) and LDSM
+(ldmatrix) instructions.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "LDSM")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "LDGSTS", "LDSM")
 
 
 def sass_counts(obj: Path) -> dict:

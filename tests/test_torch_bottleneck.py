@@ -159,6 +159,32 @@ def test_fold_block_epilogues_matches_jax(int8_tower):
         for k, v in ref.items():
             g = got[k] if k != "kx" else np.float32(got[k])
             np.testing.assert_array_equal(np.asarray(g), np.asarray(v), err_msg=k)
+        # the weights are views of the K-major GEMM operands, which the
+        # kernel reads in place: no copy
+        for k, conv in (("w1", "conv1"), ("w2flat", "conv2"), ("w3", "conv3")):
+            wk = q[name][conv]["wk"]
+            assert got[k].data_ptr() == wk.data_ptr(), k
+            assert got[k].stride() == (1, wk.stride(0)), k
+
+
+def test_fused_block_operands_made_once(int8_tower, monkeypatch):
+    """The fused int8 tower folds each block's requant chain at its first
+    call and keeps it: a second call folds nothing; new scales fold again."""
+    q = bridge.qparams_from_jax(int8_tower["q_jax"])
+    x = _t(int8_tower["x"])[:1]
+    folds = []
+    original = ri.fold_block_epilogues
+    monkeypatch.setattr(ri, "fold_block_epilogues",
+                        lambda *a: folds.append(a[1:]) or original(*a))
+    first = ri.int8_backbone_apply(q, x, fuse_stages=(1, 2))
+    assert len(folds) == 5
+    ops = ri.fused_block_operands(q["layer1_block1"], *folds[0])
+    again = ri.int8_backbone_apply(q, x, fuse_stages=(1, 2))
+    assert len(folds) == 5 and torch.equal(first, again)
+    assert ri.fused_block_operands(q["layer1_block1"], *folds[0]) is ops
+    q2 = dict(q, scales={k: v * 2 for k, v in q["scales"].items()})
+    ri.int8_backbone_apply(q2, x, fuse_stages=(1, 2))
+    assert len(folds) == 10
 
 
 def test_int8_fused_tower_matches_jax(int8_tower):
@@ -310,6 +336,10 @@ def test_fused_operands_made_once():
             torch.bfloat16, torch.float32]
         w1 = blk.conv1.weight[:, :, 0, 0].t()
         assert torch.equal(ops[0], w1) and torch.equal(ops[1], blk.conv1.bias)
+        # bf16: views of K-major storage, the tensor-core kernel's layout
+        assert ops[0].t().is_contiguous() and ops[4].t().is_contiguous()
+        assert ops[2].shape == (3, 3, 64, 64) and ops[2].permute(3, 0, 1, 2).is_contiguous()
+        assert torch.equal(ops[2], blk.conv2.weight.permute(2, 3, 1, 0))
     enc.load_state_dict({k: v * 2 for k, v in enc.state_dict().items()})
     again = blk.fused_operands(torch.bfloat16)
     assert again is not ops and torch.equal(again[0], 2 * ops[0])
