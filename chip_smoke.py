@@ -33,13 +33,24 @@ Phases (any failure exits nonzero):
      M = 144, B=4, B=32, L=128, long text's M = 16384) with the share of
      their bf16 outputs off the plain bits (TEXT_BITS_SHARE), their device
      time, the attention core alone, and each GEMM launch beside
-     torch.addmm, the GEMM's yardstick;
+     torch.addmm, the GEMM's yardstick; row 17 (fused preprocessing) at
+     PRE_SHAPES (B=32 512x512, B=32 and B=4 256x256, a ragged 600x480; RGB
+     and gray), f32 and bf16 out, one launch a call, with its device time
+     from a CUDA graph of 20 calls, its share of the bound and the engine's
+     route (preprocess_batch_device) beside it;
   3. the main paths at full width (ResNet-50 at 224, BERT-base, fusion 1024,
      T5-small decoder under beam-4, 150-180 new tokens) from random weights
      made from a seed, each with the launch counts set to 0 just before it
      and read just after:
        fast: engine.infer on one image, classify_batch + generate on a batch
        of 4; the same batch in parity mode for comparison;
+       classify_image_batch and classify_text_batch (the warm-up heads) at
+       B=4 within 0.1 of parity, K1 and K2 once per BERT layer in the text
+       call;
+       front end: the C++ host cores (mmdx_tpu_torch/native) built and in
+       use by the engine's tokenizers and wire_image_u8, identical to the
+       Python paths, the host time to tokenize B=32 texts at max_len 512
+       native against Python; inference() on the card;
        turbo: the int8 image tower and the W8A8 text blocks, calibrating on
        its first batch: infer on a gray image, classify_batch on 4 gray and
        on 4 RGB images, generate for both; the turbo-vs-fast gap within
@@ -108,6 +119,15 @@ TURBO_GAP = 0.05
 # row 17: f32 sums of the same terms in another order (the kernel's banded
 # FMAs, the plain version's dense f32 matmuls) on outputs of magnitude < 3
 PRE_ATOL, PRE_RTOL = 1e-4, 1e-5
+# row 17 in bf16: one rounding of a value within PRE_ATOL / PRE_RTOL of the
+# plain f32 value: at most half a bf16 ulp, 2^-8 of its magnitude
+BF16_HALF_ULP = 2.0 ** -8 + PRE_RTOL
+# row 17's shapes (B, H, W, C): the canonical decode size of
+# io/images.to_canonical_u8 (512x512), the serving wire shape of
+# io/images.wire_image_u8(..., square=True) (256x256: one-hot taps, a crop
+# and normalize) at B=32 and B=4, and a ragged 600x480; RGB and gray
+PRE_SHAPES = [(32, 512, 512, 3), (32, 512, 512, 1), (32, 256, 256, 3), (32, 256, 256, 1),
+              (4, 256, 256, 3), (4, 256, 256, 1), (32, 600, 480, 3), (32, 600, 480, 1)]
 # published dense peaks of one H100 SXM (NVIDIA data sheet, at 700 W); f32
 # outside the tensor cores
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_BYTES = 989e12, 1979e12, 67e12, 3.35e12
@@ -144,6 +164,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "preprocess": ("mmdx_tpu_torch/csrc/preprocess.cu",
                    "mmdx_tpu/ops/pallas_preprocess.py:62"),
 }
+
+
+def pre_label(b, h, w, c) -> str:
+    return f"B={b} {h}x{w} {'RGB' if c == 3 else 'gray'}"
 
 
 def log(msg: str) -> None:
@@ -843,8 +867,8 @@ def phase_route_kernels(device, g) -> dict:
     fused bottleneck) at ``row13_cases``, bit-equal; row 12 (bf16 and f32
     fused bottleneck) at ``row12_cases``, both with the device time from a
     CUDA graph of 20 calls beside the CUDA-event time; row 17 (fused
-    preprocessing) at B=32, 512x512, gray and RGB. -> the record of the
-    first shape of each."""
+    preprocessing) at ``PRE_SHAPES`` (``phase_preprocess``). -> the record
+    of the first shape of each."""
     import torch
     import torch.nn.functional as F
 
@@ -852,7 +876,6 @@ def phase_route_kernels(device, g) -> dict:
     from mmdx_tpu_torch.ops import bottleneck as bn
     from mmdx_tpu_torch.ops import flash_attention as fa
     from mmdx_tpu_torch.ops import int8_bottleneck as ib
-    from mmdx_tpu_torch.ops import preprocess as pp
 
     bf = torch.bfloat16
     out = {}
@@ -959,25 +982,93 @@ def phase_route_kernels(device, g) -> dict:
             else:
                 log(f"  {name} kernel {ms:.4f} ms, plain {pms:.4f} ms (median of 30)")
 
-    for ch in (3, 1):
-        b, side, crop = 32, 512, 224
-        batch = torch.randint(0, 256, (b, side, side, ch), generator=g,
-                              dtype=torch.uint8).to(device)
-        name = "RGB" if ch == 3 else "gray"
-        log(f"row 17 preprocess_batch_fused: [{b}, {side}, {side}, {ch}] u8 -> "
-            f"[{b}, {crop}, {crop}, 3] f32 ({name})")
-        with full_f32():
-            err = compare(f"row 17 {name}", pp.preprocess_batch_fused(batch),
-                          pp.preprocess_batch_fused_plain(batch), PRE_ATOL, PRE_RTOL)
-            pms = median_ms(lambda: pp.preprocess_batch_fused_plain(batch))
-        ms = median_ms(lambda: pp.preprocess_batch_fused(batch))
-        kh, kw, (hlo, hhi), (wlo, whi), _, _ = pp._fused_consts(
-            side, side, 256, crop, pp.IMAGENET_MEAN, pp.IMAGENET_STD)
-        terms = int((hhi - hlo).sum()) * int(whi.max() - wlo.min()) + crop * int((whi - wlo).sum())
-        nbytes = batch.numel() + 4 * b * crop * crop * 3 + 4 * (kh.size + kw.size)
-        record("preprocess", (err, ms, pms) + bound(nbytes, f32_ops=2 * terms * 3 * b) + (None,),
-               f"row 17 {name}")
+    out["preprocess"] = phase_preprocess(device, g)
     return out
+
+
+def row17_work(b, h, w, c, out_bytes, crop=224):
+    """(bytes, f32 operations) of row 17 on one batch: the input the
+    function needs (the rows any kh row reads, over the columns any kw row
+    reads) and the compact tap tables (a start and the taps of each row of
+    kh and kw) read once, the output written once; two operations for each
+    nonzero tap of the row pass over those columns and of the column pass
+    (once per pixel for a 1-channel image), and the normalize's multiply
+    and subtract per output. The kernel stages whole NHWC rows, so what it
+    reads beyond those columns counts against it. From ``ops/resize.py``
+    alone, so that it holds for any checkout."""
+    from mmdx_tpu_torch.ops import resize as R
+
+    kh, kw = R.fused_resize_crop_matrices(h, w, 256, crop)
+    rows = int((kh != 0).any(axis=0).sum())
+    cols = (kw != 0).any(axis=0).nonzero()[0]
+    span = int(cols.max() - cols.min() + 1)
+    taps = [int((k != 0).sum(axis=1).max()) for k in (kh, kw)]
+    nbytes = b * rows * span * c + b * crop * crop * 3 * out_bytes + \
+        4 * crop * (2 + sum(taps))
+    fma = int((kh != 0).sum()) * span * c + crop * int((kw != 0).sum()) * c
+    return nbytes, b * (2 * fma + 2 * crop * crop * 3)
+
+
+def phase_preprocess(device, g):
+    """Row 17 (``preprocess_batch_fused``) at ``PRE_SHAPES``, f32 and bf16
+    out: one launch a call; held to its plain version (the dense f32
+    matmuls, TF32 off), f32 within PRE_ATOL / PRE_RTOL, bf16 within
+    PRE_ATOL + BF16_HALF_ULP of the plain f32 values and at most BITS_SHARE
+    of its outputs one ulp off the plain version's bf16 bits; the kernel's
+    time per call (CUDA events) and its device time from a CUDA graph of 20
+    calls (its constants are cached on the device, so a graph can hold the
+    call), the bound and its share, the plain version's time, and the
+    engine's own route (``preprocess_batch_device``: two einsums and the
+    normalize, not one call) in a CUDA graph beside it. -> the record of the
+    first shape in f32."""
+    import torch
+
+    from mmdx_tpu_torch.models.resnet_int8 import full_f32
+    from mmdx_tpu_torch.ops import preprocess as pp
+
+    rec = None
+    for b, h, w, c in PRE_SHAPES:
+        plan = pp.preprocess_plan(b, h, w, c, 256, 224, 4)
+        held = pp.blocks_per_sm(plan)
+        log(f"row 17 plan at {pre_label(b, h, w, c)} f32: {plan}; an SM holds {held} "
+            f"blocks (occupancy calculator)")
+        if held < plan.blocks:
+            fail(f"row 17: an SM holds {held} blocks, the plan sizes its grid for "
+                 f"{plan.blocks}")
+        batch = torch.randint(0, 256, (b, h, w, c), generator=g, dtype=torch.uint8).to(device)
+        with full_f32():
+            ref = pp.preprocess_batch_fused_plain(batch)
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"row 17 {pre_label(b, h, w, c)} {str(dt)[6:]}"
+            n0 = pp.preprocess_batch_fused.launches
+            got = pp.preprocess_batch_fused(batch, out_dtype=dt)
+            torch.cuda.synchronize()
+            if pp.preprocess_batch_fused.launches != n0 + 1 or got.dtype != dt or \
+                    got.shape != ref.shape:
+                fail(f"{label}: expected one launch and a {dt} {tuple(ref.shape)} output, got "
+                     f"{pp.preprocess_batch_fused.launches - n0} launches, {got.dtype} "
+                     f"{tuple(got.shape)}")
+            if dt == torch.float32:
+                err = compare(label, got, ref, PRE_ATOL, PRE_RTOL)
+            else:
+                err = compare(f"{label} vs the plain f32 values", got, ref, PRE_ATOL,
+                              BF16_HALF_ULP)
+                compare_bits(f"{label} vs the plain bf16 output", got,
+                             ref.to(torch.bfloat16), BITS_SHARE, 1)
+            with full_f32():
+                pms = median_ms(lambda: pp.preprocess_batch_fused_plain(batch, out_dtype=dt))
+                route = graph_ms(lambda: pp.preprocess_batch_device(batch, out_dtype=dt))
+            ms = median_ms(lambda: pp.preprocess_batch_fused(batch, out_dtype=dt))
+            gms = graph_ms(lambda: pp.preprocess_batch_fused(batch, out_dtype=dt))
+            nbytes, ops = row17_work(b, h, w, c, got.element_size())
+            bms, by = bound(nbytes, f32_ops=ops)
+            log(f"  {label}: kernel {ms:.4f} ms (CUDA events), device {gms:.4f} ms (CUDA "
+                f"graph of 20), {nbytes / gms / 1e6:.1f} GB/s; bound {bms:.4f} ms ({by}), "
+                f"{bms / gms:.1%} of it; plain {pms:.4f} ms; engine route "
+                f"preprocess_batch_device {route:.4f} ms device (CUDA graph of 20)")
+            if rec is None:
+                rec = (err, ms, pms, bms, by, None)
+    return rec
 
 
 def int_mm_ms(x, w_t):
@@ -1358,8 +1449,150 @@ def phase_fast(device, bundle, images, counters):
         f"max |prob fast - parity| = {float(np.abs(probs - pprobs).max()):.4f}; "
         f"first differing token position per report (None = identical): "
         f"{first_differences(ids, pids)}")
+    single = phase_single_modality(fast, parity, images, counters)
     del parity
+    for k, n in single.items():
+        launches[k] += n
     return launches, fast, probs, (z_img, z_txt)
+
+
+def phase_single_modality(fast, parity, images, counters) -> dict:
+    """``classify_image_batch`` and ``classify_text_batch`` (the warm-up
+    heads, BASELINE configs 1-2) in fast mode at B=4: [4, 13] probabilities
+    in [0, 1], within 0.1 of the parity engine's (the fast-vs-parity bar),
+    K1 and K2 once per BERT layer each in the text call and no kernel in
+    the image call (fast mode's image tower is cuDNN). -> launches."""
+    import numpy as np
+
+    layers = fast.bundle.config.text.num_layers
+    total = {}
+    for name, call, expect in (
+            ("classify_image_batch", lambda e: e.classify_image_batch(images), {}),
+            ("classify_text_batch", lambda e: e.classify_text_batch(TEXTS),
+             {"bert_attn": layers, "fused_ffn": layers})):
+        reset_counts(counters)
+        probs, ms = synced(lambda: call(fast))
+        launches = read_counts(counters)
+        ref = call(parity)
+        if probs.shape != (4, 13):
+            fail(f"fast {name}: expected [4, 13] probabilities, got {probs.shape}")
+        check_probs(f"fast {name}", probs)
+        gap = float(np.abs(probs - ref).max())
+        log(f"  fast {name} B=4: {ms:.1f} ms; max |prob fast - parity| = {gap:.4f} (bar 0.1); "
+            f"launches {dict((k, n) for k, n in launches.items() if n)}")
+        if gap > 0.1:
+            fail(f"fast {name}: probabilities differ from parity by {gap:.4f}")
+        if {k: n for k, n in launches.items() if n} != expect:
+            fail(f"fast {name}: expected launches {expect}, got {launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+# the texts of tests/test_native_wordpiece.py and tests/test_native_unigram.py
+WORDPIECE_TEXTS = [
+    "31 year old male PA view , smoking history of 40 pack years, hypertension",
+    "78 year old female PA view , low grade fever, cough, shortness of breath",
+    "67M, smoker; dyspnea; CHF history.",
+    "",
+    "UNKNOWNWORDXYZQ!! multiple   spaces",
+    "Patient presente une toux naive cafe",
+    "Présente une toux naïve café",
+]
+UNIGRAM_TEXTS = [
+    "",
+    "No acute cardiopulmonary abnormality.",
+    "Heart size is within normal limits, lungs are clear.",
+    "62 year old male PA view, smoking history of 30 pack years",
+    "bilateral pleural effusions with atelectasis???",
+    "UPPER Case And MiXeD   whitespace\t\ttabs",
+    "unicode: café naïve — em-dash … ellipsis ΩΩΩ",
+    "q%$#@!* zz xqj zzz",
+    "a" * 300,
+]
+
+
+def phase_front_end(engine, bundle, images, device) -> None:
+    """The request's host front end: the C++ cores of mmdx_tpu_torch/native
+    built from the checkout's sources and in use (the engine's tokenizers
+    report native_available, its front_end log says native for all three
+    stages, wire_image_u8 resizes through the core); native and Python
+    outputs identical on the native tests' texts and on 512x512 RGB and
+    gray resizes (also against PIL and ops/resize.resize_u8_exact); the
+    host time to tokenize B=32 long texts at max_len 512, native against
+    Python; the reference-compatible inference() on the card."""
+    import numpy as np
+    from PIL import Image
+
+    from mmdx_tpu_torch import native
+    from mmdx_tpu_torch.io.images import wire_image_u8
+    from mmdx_tpu_torch.ops.resize import resize_u8_exact
+    from mmdx_tpu_torch.pipelines.inference_pipeline import clear_model_bundle, inference
+    from mmdx_tpu_torch.text.t5_tokenizer import T5StyleTokenizer
+    from mmdx_tpu_torch.text.wordpiece import WordPieceTokenizer
+
+    if not native.available():
+        fail(f"the host cores (mmdx_tpu_torch/native) did not build: {native.build_error()}")
+    log(f"  host cores built from mmdx_tpu_torch/native -> {native.library_path().name}")
+    want = {"wordpiece": "native", "unigram": "native", "resize": "native"}
+    bert, t5 = engine.bert_tok, engine.t5_tok
+    if engine.front_end != want or not getattr(bert, "native_available", False) or \
+            not getattr(t5, "native_available", False):
+        fail(f"front end: expected every stage native, the engine reports {engine.front_end}")
+    py_bert = WordPieceTokenizer(vocab=bundle.bert_vocab)
+    py_t5 = T5StyleTokenizer(vocab=bundle.t5_vocab, scores=bundle.t5_scores)
+    for text in WORDPIECE_TEXTS:
+        if bert.encode(text, 96) != py_bert.encode(text, 96):
+            fail(f"native WordPiece differs from Python on {text!r}")
+    a, b = bert.encode_batch(WORDPIECE_TEXTS, 64), py_bert.encode_batch(WORDPIECE_TEXTS, 64)
+    for t in UNIGRAM_TEXTS:
+        if t5.encode(t) != py_t5.encode(t) or \
+                t5.encode(t, max_length=16) != py_t5.encode(t, max_length=16):
+            fail(f"native unigram differs from Python on {t!r}")
+    c, d = t5.encode_batch(UNIGRAM_TEXTS, max_length=32), py_t5.encode_batch(
+        UNIGRAM_TEXTS, max_length=32)
+    if any(not np.array_equal(x[k], y[k]) for x, y in ((a, b), (c, d))
+           for k in ("input_ids", "attention_mask")):
+        fail("native and Python tokenizers' batches differ")
+    log(f"  WordPiece ({len(WORDPIECE_TEXTS)} texts) and unigram ({len(UNIGRAM_TEXTS)} texts): "
+        f"native identical to Python")
+    rng = np.random.default_rng(SEED + 2)
+    for shape in ((512, 512, 3), (512, 512)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        calls = native.resize_u8.calls
+        wired = wire_image_u8(img, 256)
+        if native.resize_u8.calls != calls + 1:
+            fail(f"wire_image_u8 {shape}: the native resize did not answer")
+        pil = np.asarray(Image.fromarray(img).resize((256, 256), Image.BILINEAR), np.uint8)
+        if not (np.array_equal(wired, pil)
+                and np.array_equal(wired, resize_u8_exact(img, 256, 256))):
+            fail(f"native resize {shape} -> 256x256 differs from PIL or resize_u8_exact")
+    log("  wire_image_u8 512x512 RGB and gray -> 256x256 through the native resize, "
+        "bit-equal to PIL and resize_u8_exact")
+    words = " ".join(TEXTS + WORDPIECE_TEXTS[:6] + UNIGRAM_TEXTS[1:6]).split()
+    texts = [" ".join(rng.choice(words, 300 + 4 * i)) for i in range(32)]
+    t0 = time.perf_counter()
+    nat = bert.encode_batch(texts, 512)
+    t_nat = (time.perf_counter() - t0) * 1e3
+    py_bert._wordpiece_cached.cache_clear()
+    t0 = time.perf_counter()
+    py = py_bert.encode_batch(texts, 512)
+    t_cold = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py_bert.encode_batch(texts, 512)
+    t_warm = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(nat["input_ids"], py["input_ids"]):
+        fail("native and Python WordPiece differ on the long texts")
+    log(f"  host tokenize B=32 at max_len 512 ({int(nat['attention_mask'].sum())} tokens): "
+        f"native {t_nat:.2f} ms, Python {t_cold:.2f} ms (word cache cold), "
+        f"{t_warm:.2f} ms (warm)")
+    out, ms = synced(lambda: inference(bundle, images[0], TEXTS[0], device=device))
+    clear_model_bundle()
+    if set(out) != {"report_text", "disease_probs", "disease_vector", "model_version"}:
+        fail(f"inference(): unexpected keys {sorted(out)}")
+    check_probs("inference()", np.asarray(list(out["disease_probs"].values()), np.float32))
+    log(f"  inference() (parity engine, beam-4): {ms:.1f} ms, report "
+        f"{len(out['report_text'])} chars")
 
 
 def phase_turbo(device, bundle, images, counters, fast, fast_probs):
@@ -1746,6 +1979,8 @@ def main() -> int:
     counters = launch_counters()
     log("fast path")
     fast_launches, fast, fast_probs, z4 = phase_fast(device, bundle, images, counters)
+    log("front end: the C++ host cores, the tokenizers and the wire resize")
+    phase_front_end(fast, bundle, images, device)
     log("turbo path")
     turbo_launches, turbo = phase_turbo(device, bundle, images, counters, fast, fast_probs)
     log("decode variants: greedy and the decode-layer switches")

@@ -80,9 +80,12 @@ SIGNATURES = {
     # Cin, M, Cout, TR, stream (bf16, weights K-major)
     "mmdx_bottleneck_tc": [_P, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P, _L, _P, _P]
                           + [_I] * 7 + [_P],
-    # img, kh, kw, hlo, hhi, wlo, whi, scale, shift, out, B, H, W, C, crop,
-    # TRo, w0, w1, stream
-    "mmdx_preprocess": [_P] * 10 + [_I] * 8 + [_P],
+    # img, hstart, hcoef, wstart, wcoef, out, B, H, W, C, crop, Th, Tw, w0,
+    # span, TRo, blocks, grid, io_off, io_bytes, smem, out_bf16, scale[3],
+    # shift[3], stream
+    "mmdx_preprocess": [_P] * 6 + [_I] * 16 + [_F] * 6 + [_P],
+    # smem, out_bf16, blocks, held (int out)
+    "mmdx_preprocess_blocks_per_sm": [_I, _I, _I, _P],
 }
 
 # GEMM epilogues (csrc/gemm.cu enum Epilogue)

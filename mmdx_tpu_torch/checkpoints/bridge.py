@@ -54,11 +54,58 @@ class TorchBundle:
     metadata: dict | None = None
 
     def tokenizers(self):
+        """(BERT WordPiece, T5 unigram) tokenizers over the C++ cores
+        (``native/``) where they build, with output identical to the pure
+        Python tokenizers, which they fall back to otherwise; each native
+        tokenizer says which it runs (``native_available``). As
+        ``mmdx_tpu/checkpoints/bundle.py:46-86``."""
+        return self._bert_tokenizer(), self._t5_tokenizer()
+
+    def _t5_tokenizer(self):
+        """The unigram Viterbi core when the vocab is scored; pure Python
+        otherwise (an unscored vocab segments greedily, in Python)."""
         from mmdx_tpu_torch.text.t5_tokenizer import T5StyleTokenizer
+
+        if self.t5_scores:
+            from mmdx_tpu_torch.text.native_unigram import NativeT5Tokenizer
+
+            lines = [f"{t}\t{self.t5_scores.get(i, 0.0)}"
+                     for t, i in sorted(self.t5_vocab.items(), key=lambda kv: kv[1])]
+            tok = NativeT5Tokenizer(staged_vocab_file("t5", lines))
+            if tok.native_available:
+                return tok
+        return T5StyleTokenizer(vocab=self.t5_vocab, scores=self.t5_scores)
+
+    def _bert_tokenizer(self):
+        """The WordPiece core (it loads its vocab from a file, so the
+        in-memory vocab is staged to a content-addressed one)."""
+        from mmdx_tpu_torch.text.native_wordpiece import NativeWordPieceTokenizer
         from mmdx_tpu_torch.text.wordpiece import WordPieceTokenizer
 
-        return (WordPieceTokenizer(vocab=self.bert_vocab),
-                T5StyleTokenizer(vocab=self.t5_vocab, scores=self.t5_scores))
+        lines = [t for t, _ in sorted(self.bert_vocab.items(), key=lambda kv: kv[1])]
+        tok = NativeWordPieceTokenizer(staged_vocab_file("bert", lines))
+        if tok.native_available:
+            return tok
+        return WordPieceTokenizer(vocab=self.bert_vocab)
+
+
+def staged_vocab_file(kind: str, lines: list[str]) -> Path:
+    """An in-memory vocab as a content-addressed file in the temp directory
+    (the native tokenizers load from a path); written atomically, so
+    processes that stage the same vocab share one file
+    (``mmdx_tpu/checkpoints/bundle.py:95``)."""
+    import hashlib
+    import os
+    import tempfile
+
+    blob = ("\n".join(lines) + "\n").encode("utf-8")
+    digest = hashlib.sha256(blob).hexdigest()[:16]
+    path = Path(tempfile.gettempdir()) / f"mmdx_{kind}_vocab_{digest}.txt"
+    if not path.exists():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(blob)
+        tmp.replace(path)
+    return path
 
 
 def default_vocabs():

@@ -183,3 +183,12 @@ class TextEncoder(nn.Module):
         """-> embeddings [B, d_txt]."""
         hidden = self.bert(input_ids, attention_mask, token_type_ids, kernels, int8)
         return self.proj(masked_mean_pool(hidden, attention_mask))
+
+    def classify(self, z):
+        """Embeddings -> the warm-up classifier's probabilities [B, n_disease]
+        f32: sigmoid of the f32 logits, as the JAX engine's single-modality
+        path (``runtime/engine.py:527-558``)."""
+        if self.classifier is None:
+            raise ValueError("this tower has no warm-up classifier "
+                             "(use_warmup_classifier is off)")
+        return torch.sigmoid(self.classifier(z).to(torch.float32))

@@ -1,7 +1,8 @@
 """The flagship model: image tower + text tower + late fusion + report decoder.
 
-Port of ``mmdx_tpu/models/diagnosis.py`` (``classify`` ``:45``,
-``classify_from_image_feats`` ``:62-81``, ``prepare_generation`` /
+Port of ``mmdx_tpu/models/diagnosis.py`` (``classify`` ``:45`` and
+``classify_from_image_feats`` ``:62-81`` as one ``classify`` from the image
+embeddings, ``prepare_generation`` /
 ``decode_step_beam`` ``:83-95``). ``kernels=True`` routes the text tower and
 the decode step through the hand-written kernels (fast and turbo mode);
 ``kernels=False`` runs their plain versions (parity mode). ``int8=True``
@@ -29,25 +30,11 @@ class DiagnosisModel(nn.Module):
         self.text_encoder = TextEncoder(config.text, pooler=bert_pooler)
         self.fusion = FusionModel(config.fusion, config.report, t5_encoder_layers)
 
-    def classify(self, images, input_ids, attention_mask, token_type_ids=None,
+    def classify(self, z_img, input_ids, attention_mask, token_type_ids=None,
                  kernels: bool = False, int8: bool = False):
-        """Preprocessed NHWC images + token ids -> (probs [B, 13] f32, z_img,
-        z_txt)."""
-        z_img = self.image_encoder.encode(images)
-        return self._classify(z_img, input_ids, attention_mask, token_type_ids,
-                              kernels, int8)
-
-    def classify_from_image_feats(self, feats, input_ids, attention_mask,
-                                  token_type_ids=None, kernels: bool = False,
-                                  int8: bool = False):
-        """As ``classify`` from precomputed pooled backbone features [B, 2048]
-        (the int8 tower's f32 output), projected in the model dtype."""
-        z_img = self.image_encoder.project(feats)
-        return self._classify(z_img, input_ids, attention_mask, token_type_ids,
-                              kernels, int8)
-
-    def _classify(self, z_img, input_ids, attention_mask, token_type_ids, kernels,
-                  int8: bool = False):
+        """The image tower's embeddings [B, d_img] (``ImageEncoder.encode``,
+        or ``project`` of the int8 tower's features) + token ids ->
+        (probs [B, 13] f32, z_img, z_txt)."""
         z_txt = self.text_encoder.encode(input_ids, attention_mask, token_type_ids,
                                          kernels, int8)
         logits = self.fusion.disease_head(self.fusion.fuse(z_img, z_txt))

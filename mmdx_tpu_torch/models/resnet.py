@@ -163,3 +163,12 @@ class ImageEncoder(nn.Module):
         """Pooled backbone features [B, 2048] (f32 from the int8 tower) ->
         embeddings, in the weights' dtype (``ImageEncoder.heads``)."""
         return self.proj(feats.to(self.proj.kernel.dtype))
+
+    def classify(self, z):
+        """Embeddings -> the warm-up classifier's probabilities [B, n_disease]
+        f32: sigmoid of the f32 logits, as the JAX engine's single-modality
+        path (``runtime/engine.py:527-558``)."""
+        if self.classifier is None:
+            raise ValueError("this tower has no warm-up classifier "
+                             "(use_warmup_classifier is off)")
+        return torch.sigmoid(self.classifier(z).to(torch.float32))

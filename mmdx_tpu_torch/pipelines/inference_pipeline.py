@@ -1,9 +1,9 @@
-"""Bundle and engine caches for serving.
+"""Bundle and engine caches for serving, and the reference's ``inference()``.
 
 Port of ``mmdx_tpu/pipelines/inference_pipeline.py`` (``get_model_bundle``,
-``get_engine``). The port serves the reference-format ``model_bundle.pt``
-(``mmdx_tpu.checkpoints.torch_export.bundle_to_torch`` writes one from any
-``.mmdx``); loading ``.mmdx`` directly needs flax's msgpack layout and is not
+``get_engine``, ``inference``). The port serves the reference-format
+``model_bundle.pt`` (``mmdx_tpu.checkpoints.torch_export.bundle_to_torch``
+writes one from any ``.mmdx``); loading ``.mmdx`` directly needs flax's msgpack layout and is not
 ported yet.
 """
 from __future__ import annotations
@@ -74,3 +74,15 @@ def get_engine(model_bundle: TorchBundle, mode: str = "parity",
         while len(_ENGINES) > _ENGINE_CACHE_MAX:
             _ENGINES.pop(next(iter(_ENGINES)))
         return existing
+
+
+def inference(model_bundle: TorchBundle, image_pil, patient_details: str,
+              device=None, gen_kwargs: dict | None = None) -> dict:
+    """The reference-compatible ``inference()``
+    (``mmdx_tpu/pipelines/inference_pipeline.py:102-110``): one image (PIL
+    image, encoded bytes or uint8 array) and its patient details through the
+    parity engine of ``get_engine`` -> {report_text, disease_probs,
+    disease_vector, model_version}. ``device`` places the engine (None: the
+    first CUDA card)."""
+    engine = get_engine(model_bundle, device=device)
+    return engine.infer(image_pil, patient_details, gen_kwargs=gen_kwargs)

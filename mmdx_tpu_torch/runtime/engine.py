@@ -102,6 +102,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def front_end_backends(bert_tok, t5_tok) -> dict[str, str]:
+    """Which backend each host stage of a request takes: "native" (the C++
+    cores of ``native/``) or "python" (their pure-Python fallbacks, with
+    identical outputs): the WordPiece and unigram tokenizers and the wire
+    image resize of ``io.images.wire_image_u8``."""
+    from mmdx_tpu_torch import native
+
+    def kind(flag):
+        return "native" if flag else "python"
+
+    return {"wordpiece": kind(getattr(bert_tok, "native_available", False)),
+            "unigram": kind(getattr(t5_tok, "native_available", False)),
+            "resize": kind(native.available())}
+
+
 class InferenceEngine:
     def __init__(self, bundle: TorchBundle, mode: str = "parity",
                  canonical_size: int = 512, device=None, mesh=None):
@@ -151,6 +166,9 @@ class InferenceEngine:
                 self.model.text_encoder.quantize_int8_()
         self.bert_tok, self.t5_tok = bundle.tokenizers()
         self.thresholds = np.asarray(bundle.thresholds, np.float32)
+        self.front_end = front_end_backends(self.bert_tok, self.t5_tok)
+        print("[mmdx] front end: " + ", ".join(f"{k} {v}" for k, v in self.front_end.items()),
+              file=sys.stderr, flush=True)
 
     # ------------------------------------------------------------------
     # host-side input prep
@@ -226,10 +244,26 @@ class InferenceEngine:
                 return np.concatenate([a, np.repeat(a[-1:], k, axis=0)])
 
             imgs, ids, mask, tt = _pad(imgs), _pad(ids), _pad(mask), _pad(tt)
-        x = self._tensor(imgs)
-        cfg = self.bundle.config.image
         tokens = (self._tensor(ids).long(), self._tensor(mask).long(),
                   self._tensor(tt).long())
+        with torch.inference_mode():
+            probs, z_img, z_txt = self.model.classify(
+                self._image_embeddings(imgs), *tokens, kernels=self.kernels,
+                int8=self.text_int8)
+        probs = probs.cpu().numpy()[:n0]
+        z_img, z_txt = z_img[:n0], z_txt[:n0]
+        if host_outputs:  # numpy f32 (exact for bf16), as the batcher concatenates
+            z_img, z_txt = (z.float().cpu().numpy() for z in (z_img, z_txt))
+        return probs, z_img, z_txt
+
+    def _image_embeddings(self, imgs: np.ndarray) -> torch.Tensor:
+        """``prep_images`` output -> z_img [B, d_img] in the engine's dtype,
+        through the engine's image tower: turbo the int8 tower (1-channel
+        batches through the centered-gray preprocessing into its folded gray
+        stem), else the bf16 (fast) or f32 (parity) tower; uint8 batches
+        are preprocessed on the device."""
+        x = self._tensor(imgs)
+        cfg = self.bundle.config.image
         if self.mode == "turbo":
             qparams = self._ensure_qparams(x)
             if x.dtype == torch.uint8 and x.shape[-1] == 1:
@@ -240,22 +274,35 @@ class InferenceEngine:
                                             cfg.mean, cfg.std, out_dtype=self.dtype)
             with torch.inference_mode():
                 feats = ri.int8_backbone_apply(qparams, x, self.int8_fused_blocks)
-                probs, z_img, z_txt = self.model.classify_from_image_feats(
-                    feats, *tokens, kernels=self.kernels, int8=self.text_int8)
+                return self.model.image_encoder.project(feats)
+        if x.dtype == torch.uint8:
+            x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
+                                        cfg.mean, cfg.std, out_dtype=self.dtype)
         else:
-            if x.dtype == torch.uint8:
-                x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
-                                            cfg.mean, cfg.std, out_dtype=self.dtype)
-            else:
-                x = x.to(self.dtype)
-            with torch.inference_mode():
-                probs, z_img, z_txt = self.model.classify(
-                    x, *tokens, kernels=self.kernels, int8=self.text_int8)
-        probs = probs.cpu().numpy()[:n0]
-        z_img, z_txt = z_img[:n0], z_txt[:n0]
-        if host_outputs:  # numpy f32 (exact for bf16), as the batcher concatenates
-            z_img, z_txt = (z.float().cpu().numpy() for z in (z_img, z_txt))
-        return probs, z_img, z_txt
+            x = x.to(self.dtype)
+        with torch.inference_mode():
+            return self.model.image_encoder.encode(x)
+
+    def classify_image_batch(self, images) -> np.ndarray:
+        """Single modality: images -> the image tower's warm-up classifier
+        probabilities [B, 13] f32 (BASELINE config 1, image-only CNN
+        classification; ``mmdx_tpu/runtime/engine.py:562``)."""
+        z_img = self._image_embeddings(self.prep_images(images))
+        with torch.inference_mode():
+            return self.model.image_encoder.classify(z_img).cpu().numpy()
+
+    def classify_text_batch(self, texts: list[str]) -> np.ndarray:
+        """Single modality: free text -> the text tower's warm-up classifier
+        probabilities [B, 13] f32 (BASELINE config 2, report-only text
+        classification; ``mmdx_tpu/runtime/engine.py:570``); in fast and
+        turbo mode the tower runs its kernels (K1, K2; K6, K7 in W8A8)."""
+        tok = self.prep_texts(texts)
+        ids, mask, tt = (self._tensor(tok[k]).long()
+                         for k in ("input_ids", "attention_mask", "token_type_ids"))
+        with torch.inference_mode():
+            z_txt = self.model.text_encoder.encode(ids, mask, tt, self.kernels,
+                                                   self.text_int8)
+            return self.model.text_encoder.classify(z_txt).cpu().numpy()
 
     def _ensure_qparams(self, images=None) -> dict:
         """The int8 tower's qparams, built once per engine (turbo mode).

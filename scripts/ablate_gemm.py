@@ -3,9 +3,11 @@
 (``csrc/gemm.cu``), with ``--int8`` the int8 GEMM (``csrc/int8_gemm.cu``),
 with ``--lm-head`` the streamed lm head (``csrc/lm_head.cu``, rows 10, 11),
 with ``--bottleneck`` the fused bottlenecks' implicit GEMM
-(``csrc/implicit_gemm.cuh``, rows 12, 13).
+(``csrc/implicit_gemm.cuh``, rows 12, 13), with ``--preprocess`` the fused
+preprocessing (``csrc/preprocess.cu``, row 17).
 
-    python3 scripts/ablate_gemm.py [--int8 | --lm-head | --bottleneck]
+    python3 scripts/ablate_gemm.py [--int8 | --lm-head | --bottleneck | --preprocess]
+                                   [--only=VARIANT,VARIANT]
 
 Builds variants of the port's kernels from copies of ``mmdx_tpu_torch`` in
 a temporary directory, each with one part of the GEMM taken out of its
@@ -34,6 +36,17 @@ source by a text substitution:
   no epilogue   (bottleneck) a1, a2 and the outputs are not stored (the
                 stores stay behind a test the compiler cannot decide, so the
                 MMAs whose sums they would store stay too);
+  no row pass, no column pass, no passes  (preprocess) the pass (or both)
+                is skipped (the next step reads whatever shared memory holds);
+  no loads      (preprocess) no cp.async copy of the input rows;
+  no stores     (preprocess) the output leaves shared memory behind a test
+                the compiler cannot decide, never taken;
+  no passes, loads or stores  (preprocess) the block's loop, tables and
+                barriers alone;
+  one lane, four lanes  (preprocess) each thread sums one (four) of the
+                row pass's quads at a time (two in the kernel);
+  no conversion (preprocess) the row pass's bytes are not converted to
+                f32 (each 32-bit word is read as a float);
 
 and times each, in turns twice: the bf16 GEMM with the bias epilogue on the
 plan ``gemm_plan`` picks, at BERT-base's products for the classify rows (M =
@@ -42,7 +55,11 @@ chip_smoke.py's K5 sites (the gray stem at B=32 and B=512, layer1 conv1,
 layer4 conv3 + residual) and at the text blocks' four projections with their
 epilogues at M = 3072: the device time per call from a CUDA graph of 20
 calls (``chip_smoke.graph_ms``); the bottlenecks at B=32, row 12 at stage 1
-block 0 and stage 2, row 13 at stages 1 and 2, as a graph of 20 calls; the lm head's greedy at N = 4 and 64 and
+block 0 and stage 2, row 13 at stages 1 and 2, as a graph of 20 calls; row
+17 at B=32 512x512 RGB and gray and 256x256 RGB, f32 out, as a graph of 20
+calls, each at the plan's blocks an SM and at three and at four, at
+512x512 RGB also with the bands' height TRo capped at 4 and 16 and with a
+block a band (no persistent loop); the lm head's greedy at N = 4 and 64 and
 stats at N = 16, 128 and 256 (T5 vocabulary 32128 x 512), each with L2
 warm (a graph of 20 calls) and cold (a graph of 20 pairs of a 128 MB read
 and a call, less the reads alone). The variants compute wrong numbers; only
@@ -255,6 +272,69 @@ for label, hw, c, m in (("row 13 stage 1", 56, 256, 64), ("row 13 stage 2", 28, 
 cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
 """
 
+PP_ROW = "    // row pass: tmp[i][j*C + c]"
+PP_COL_IF = "    for (int o = tid; o < p.crop; o += PP_THREADS) {"
+PP_VARIANTS = {
+    "base": (None, None),
+    "no row pass": (PP_ROW, "    if (p.H < 0)\n" + PP_ROW),
+    "no column pass": (PP_COL_IF, "    if (p.H < 0)\n" + PP_COL_IF),
+    "no passes": [(PP_ROW, "    if (p.H < 0)\n" + PP_ROW),
+                  (PP_COL_IF, "    if (p.H < 0)\n" + PP_COL_IF)],
+    "no passes, loads or stores": [
+        (PP_ROW, "    if (p.H < 0)\n" + PP_ROW),
+        (PP_COL_IF, "    if (p.H < 0)\n" + PP_COL_IF),
+        ("      cp_async16(buf + 16 * k, p.img + g);", "      (void)g;"),
+        ("    for (int k = tid; k < vecs; k += PP_THREADS) dst[k] = src[k];",
+         "    if (p.H < 0)\n      for (int k = tid; k < vecs; k += PP_THREADS) dst[k] = src[k];")],
+    "no loads": ("      cp_async16(buf + 16 * k, p.img + g);", "      (void)g;"),
+    "no stores": ("    for (int k = tid; k < vecs; k += PP_THREADS) dst[k] = src[k];",
+                  "    if (p.H < 0)\n      for (int k = tid; k < vecs; k += PP_THREADS) "
+                  "dst[k] = src[k];"),
+    "one lane": ("constexpr int PP_LANES = 2;", "constexpr int PP_LANES = 1;"),
+    "four lanes": ("constexpr int PP_LANES = 2;", "constexpr int PP_LANES = 4;"),
+    "no conversion": ("fmaf(c, byte_to_f32(v, k), s[l][k])",
+                      "fmaf(c, __uint_as_float(v + k), s[l][k])"),
+}
+
+PP_TIME = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import torch
+import chip_smoke as cs
+from mmdx_tpu_torch.ops import preprocess as pp
+dev = torch.device("cuda", 0)
+g = torch.Generator().manual_seed(cs.SEED)
+parts = []
+for b, h, w, c in ((32, 512, 512, 3), (32, 512, 512, 1), (32, 256, 256, 3)):
+    x = torch.randint(0, 256, (b, h, w, c), generator=g, dtype=torch.uint8).to(dev)
+    kept = pp.BLOCK_CHOICES
+    for choices in (kept, (3,), (4,)):
+        pp.BLOCK_CHOICES = choices
+        pp.preprocess_plan.cache_clear()
+        plan = pp.preprocess_plan(b, h, w, c, 256, 224, 4)
+        parts.append(f"{cs.pre_label(b, h, w, c)} {plan.blocks} blocks an SM (held "
+                     f"{pp.blocks_per_sm(plan)}) of TRo={plan.tro} "
+                     f"{cs.graph_ms(lambda: pp.preprocess_batch_fused(x)) * 1e3:.2f} us")
+    pp.BLOCK_CHOICES = kept
+    pp.preprocess_plan.cache_clear()
+    if (h, c) != (512, 3):
+        continue
+    for tro in (4, 16):
+        pp.MAX_TRO, kept = tro, pp.MAX_TRO
+        pp.preprocess_plan.cache_clear()
+        parts.append(f"TRo={pp.preprocess_plan(b, h, w, c, 256, 224, 4).tro} "
+                     f"{cs.graph_ms(lambda: pp.preprocess_batch_fused(x)) * 1e3:.2f} us")
+        pp.MAX_TRO = kept
+        pp.preprocess_plan.cache_clear()
+    planner = pp.preprocess_plan
+    pp.preprocess_plan = lambda *a: planner(*a)._replace(grid=b * -(-224 // planner(*a).tro))
+    parts.append(f"a block a band {cs.graph_ms(lambda: pp.preprocess_batch_fused(x)) * 1e3:.2f} us")
+    pp.preprocess_plan = planner
+cs.log(f"{sys.argv[3]}: " + "; ".join(parts))
+"""
+
+
 def main() -> int:
     import torch
 
@@ -265,8 +345,12 @@ def main() -> int:
         ("int8_gemm.cu", I8_VARIANTS, I8_TIME) if "--int8" in sys.argv[1:]
         else ("lm_head.cu", LM_VARIANTS, LM_TIME) if "--lm-head" in sys.argv[1:]
         else ("implicit_gemm.cuh", BN_VARIANTS, BN_TIME) if "--bottleneck" in sys.argv[1:]
+        else ("preprocess.cu", PP_VARIANTS, PP_TIME) if "--preprocess" in sys.argv[1:]
         else ("gemm.cu", VARIANTS, TIME))
     src = (ROOT / "mmdx_tpu_torch" / "csrc" / source).read_text()
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    if only:  # --only=base,two lanes: these variants alone
+        variants = {k: v for k, v in variants.items() if k in only[0]}
     with tempfile.TemporaryDirectory() as tmp:
         builds = {}
         for name, edit in variants.items():

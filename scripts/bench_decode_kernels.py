@@ -3,7 +3,7 @@
 GEMM, for any checkout of the PyTorch port, on one CUDA card.
 
     python3 scripts/bench_decode_kernels.py [PORT_ROOT] [--ranks] [--plans] [--int8] [--lm-head]
-                                            [--bottleneck]
+                                            [--bottleneck] [--preprocess]
 
 PORT_ROOT (default: this repository) is the directory whose
 ``mmdx_tpu_torch`` is imported, so one call can time an older checkout
@@ -62,6 +62,19 @@ storage where the checkout's wrappers read them so
 (``bottleneck.kmajor_ld``), else contiguous. With ``--plans`` as well (a
 checkout with ``bottleneck.tc_plan``), each shape also runs at every band
 height TR that fits shared memory, beside the one ``tc_plan`` picks.
+
+With ``--preprocess``, only row 17 (``preprocess_batch_fused``) at every
+shape of ``chip_smoke.PRE_SHAPES``, f32 and bf16 out: the kernel's device
+time per call from a CUDA graph of 20 launches of its entry point with its
+constants already on the device (a checkout whose wrapper caches them on
+the device is called through the wrapper; an older one, whose wrapper
+copies eight host constants a call and writes f32 only, through its
+library entry point, with the constants copied once and a cast after each
+f32 launch for bf16), its time per call with the host's part (CUDA events
+around each call, median of 30), the bound (``chip_smoke.row17_work``) and
+its share, and the engine's route ``preprocess_batch_device`` (two einsums and the
+normalize; in an older checkout it copies its matrices every call, so it
+is timed there with CUDA events around each call, host included).
 
 With ``--ranks`` (a checkout with ``beam_attn.cluster_ranks``), rows 5 and
 6 are also timed at every cluster size, 1, 2, 4 and 8 blocks, pinned by
@@ -122,6 +135,9 @@ def main() -> int:
         return 0
     if "--bottleneck" in sys.argv:
         bottleneck_kernels(smoke, dev, g, tag)
+        return 0
+    if "--preprocess" in sys.argv:
+        preprocess_kernels(smoke, dev, g, tag)
         return 0
     dm, kc, dff, heads = 512, 4, 2048, 8
     for n in (4, 16, 20, 32, 64, 128):
@@ -331,6 +347,59 @@ def bottleneck_kernels(smoke, dev, g, tag):
             sweep_plans(f"row 12 {label}", bn, "bottleneck_plan",
                         (b, h, w, cin, m, cout, 2, proj),
                         lambda x=x, args=args: bn.fused_bottleneck(x, **args))
+
+
+def preprocess_kernels(smoke, dev, g, tag):
+    """Row 17's kernel body and the engine's route (see the module's note)."""
+    import torch
+
+    from mmdx_tpu_torch import _build
+    from mmdx_tpu_torch.ops import preprocess as pp
+
+    cached = hasattr(pp, "device_tables")
+    crop = 224
+
+    def body(batch, dt):
+        """The kernel alone: a launch of the entry point with its constants
+        on the device."""
+        if cached:
+            return lambda: pp.preprocess_batch_fused(batch, out_dtype=dt)
+        b, h, w, c = batch.shape
+        kh, kw, (hlo, hhi), (wlo, whi), scale, shift = pp._fused_consts(
+            h, w, 256, crop, pp.IMAGENET_MEAN, pp.IMAGENET_STD)
+        consts = [torch.from_numpy(a).to(dev) for a in (kh, kw, hlo, hhi, wlo, whi, scale,
+                                                          shift)]
+        w0, w1 = int(wlo.min()), int(whi.max())
+        rows = max(1, min(16, pp._PREPROC_SMEM // max(1, 4 * (w1 - w0))))
+        out = torch.empty((b, crop, crop, 3), dtype=torch.float32, device=dev)
+
+        def call():
+            _build.check(_build.lib().mmdx_preprocess(
+                batch.data_ptr(), *(t.data_ptr() for t in consts), out.data_ptr(), b, h, w,
+                c, crop, rows, w0, w1, _build.stream(batch)), "row 17")
+            return out if dt == torch.float32 else out.to(dt)
+
+        return call
+
+    for b, h, w, c in smoke.PRE_SHAPES:
+        batch = torch.randint(0, 256, (b, h, w, c), generator=g, dtype=torch.uint8).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            fn = body(batch, dt)
+            fn()
+            torch.cuda.synchronize()
+            k = smoke.graph_ms(fn)
+            e = smoke.median_ms(fn)
+            route = lambda: pp.preprocess_batch_device(batch, out_dtype=dt)  # noqa: E731
+            if cached:
+                r = f"{smoke.graph_ms(route) * 1e3:.2f} us device"
+            else:
+                r = f"{smoke.median_ms(route) * 1e3:.2f} us per call (CUDA events)"
+            nbytes, ops = smoke.row17_work(b, h, w, c, 2 if dt == torch.bfloat16 else 4)
+            bms, by = smoke.bound(nbytes, f32_ops=ops)
+            smoke.log(f"[{tag}] row 17 {smoke.pre_label(b, h, w, c)} {str(dt)[6:]}: device "
+                      f"{k * 1e3:.2f} us per call, {e * 1e3:.2f} us with the host (CUDA "
+                      f"events); bound {bms * 1e3:.2f} us ({by}), "
+                      f"{bms / k:.1%} of it; engine route {r}")
 
 
 def lm_head_kernels(smoke, dev, g, tag):

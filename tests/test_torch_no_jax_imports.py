@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``mmdx_tpu_torch/``, nor
-``chip_smoke.py`` or the port's profiling script, imports jax, flax or any
+``chip_smoke.py`` or the port's scripts on the card (profiling, kernel
+timing, ablation, ptxas report, profiler windows), imports jax, flax or any
 module of the JAX package ``mmdx_tpu`` (it keeps its own copies of the
 framework-free modules it needs). Checked on the source with ``ast``, so
 imports inside functions count too."""
@@ -10,7 +11,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mmdx_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_port.py"]
+    ROOT / "chip_smoke.py"] + [ROOT / "scripts" / f"{name}.py" for name in (
+        "profile_torch_port", "bench_decode_kernels", "ablate_gemm", "ptxas_report",
+        "profiler_windows")]
 FORBIDDEN = ("jax", "flax", "mmdx_tpu")
 
 
@@ -38,3 +41,10 @@ def test_checker_sees_every_import_form():
            "from . import x\n")
     assert forbidden_imports(ast.parse(src)) == [
         "jax", "flax.linen", "mmdx_tpu.config", "mmdx_tpu", "mmdx_tpu.io.images"]
+
+
+def test_the_port_covers_its_native_sources():
+    """The host cores the port builds are its own copies, in its package."""
+    names = {p.name for p in (ROOT / "mmdx_tpu_torch" / "native").glob("*.cc")}
+    assert names == {"resize_u8.cc", "wordpiece.cc", "unigram.cc"}
+    assert ROOT / "mmdx_tpu_torch" / "native" / "__init__.py" in SOURCES
