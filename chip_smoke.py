@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-2 only (build + kernel checks)
+    python3 chip_smoke.py --train    # phases 1 and 5 only (build + train and publish)
 
 Phases (any failure exits nonzero):
   1. card and build: the card's name and power limit, torch/CUDA/nvcc
@@ -16,9 +17,9 @@ Phases (any failure exits nonzero):
      work, and for the bf16 cache read and flash attention the time of the
      library call of the same function (scaled_dot_product_attention); the
      lm head (rows 10, 11) at N = 1 to 256 rows with a fully banned chunk
-     and row, and on exact ties, each one kernel a call as the profiler
-     counts it in every window (all taken first, before any CUDA graph)
-     and the stats bit-equal over two launches; for
+     and row, and on exact ties, each one kernel a call as the CUDA
+     driver records it in a graph captured over five calls (no copy, set
+     or other kernel) and the stats bit-equal over two launches; for
      K3, K4, K5 (every site, with TOP/s, GB/s and torch._int_mm's time for
      the product alone), K6, K7 and rows 5, 7 and 9 (and the library call)
      also the device time per call from a CUDA graph of 20 calls, which
@@ -68,7 +69,22 @@ Phases (any failure exits nonzero):
      before them, the width contracts: an engine on the card from 16-wide
      heads is refused at construction, naming K1; the CPU engine answers;
   4. /api/predict/ through the port's WSGI app, in process: fast mode,
-     turbo mode with a gray PNG upload, and fast mode with greedy reports.
+     turbo mode with a gray PNG upload, and fast mode with greedy reports;
+  5. train and publish at full width from random weights (seed 0): 40
+     synthetic examples staged in an in-memory store and feature store
+     (it fails where pandas or pyarrow is missing); run_training_pipeline in bf16
+     with image phases 1 + 1 steps at batch 32, text phases 3 + 3 at batch
+     32, fusion at batch 10 for 5 steps with a checkpoint at step 5, then
+     again to step 10 resumed from that checkpoint; evaluation with greedy
+     reports, int8 calibration, publication to a temporary registry. It
+     fails on a nonfinite loss, a last fusion loss not below the first, or
+     any hand-kernel launch while training, and prints each phase's wall and
+     device time per step and the peak device memory. The published bundle
+     is loaded back with load_model_from_registry: its parity probabilities
+     within 1e-5 of the in-memory trained bundle's, one infer in fast mode
+     (K1, K2 once per layer, K3, K4 per step; within 0.1 of parity) and one
+     in turbo mode from the persisted int8 scales (no first-batch
+     calibration; K5-K7 and K3, K4; within TURBO_GAP of fast).
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a card the
@@ -324,7 +340,7 @@ def phase_kernels(device) -> dict:
 
     from mmdx_tpu_torch.ops import beam_attn, t5_step
 
-    lm_head_windows(device)  # before any CUDA graph (graph_ms) in the process
+    lm_head_windows(device)
     g = torch.Generator(device="cpu").manual_seed(SEED)
     bf = torch.bfloat16
 
@@ -661,19 +677,63 @@ def lm_head_check(name, hidden, emb, mask, label, exact=False) -> float:
     return err
 
 
-def kernel_launches(fn, calls: int = 5) -> float:
-    """CUDA kernels per call of ``fn``, as the profiler counts them over
-    ``calls`` calls in one window."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType values of the CUDA driver API (cuda.h)
+GRAPH_KERNEL_NODE = 0
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+                    5: "empty", 6: "wait_event", 7: "event_record", 10: "mem_alloc",
+                    11: "mem_free"}
 
+
+def graph_nodes(fn, calls: int = 5) -> tuple[dict, list]:
+    """The device work of ``calls`` calls of ``fn`` as the CUDA driver
+    records it: the calls captured in one CUDA graph, its nodes read back
+    with ``cuGraphGetNodes``. -> ({node type: count}, [name of each kernel
+    node, None where the driver cannot name it])."""
+    import ctypes
+
+    import torch
+
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / calls
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(what, *args):
+        rc = getattr(cu, what)(*args)
+        if rc != 0:
+            fail(f"{what} returned CUresult {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(count))
+    types: dict[str, int] = {}
+    names: list = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        label = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        types[label] = types.get(label, 0) + 1
+        if kind.value != GRAPH_KERNEL_NODE:
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes) starts with its CUfunction;
+        # cuFuncGetName needs a driver of CUDA 12.3 or later
+        params = (ctypes.c_void_p * 32)()
+        name = ctypes.c_char_p()
+        get_name = getattr(cu, "cuFuncGetName", None)
+        if (get_name is not None
+                and cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
+                and params[0] and get_name(ctypes.byref(name), ctypes.c_void_p(params[0])) == 0):
+            names.append(name.value.decode())
+        else:
+            names.append(None)
+    del graph
+    return types, names
 
 
 def lm_head_inputs(device, g, n: int, v: int = 32128, dm: int = 512):
@@ -691,29 +751,42 @@ def lm_head_inputs(device, g, n: int, v: int = 32128, dm: int = 512):
 
 
 def lm_head_windows(device) -> None:
-    """Rows 10 and 11 at N in LM_HEAD_ROWS: kernels a call as the profiler
-    counts them, every window taken before any CUDA graph is captured in the
-    process. After graphs are captured and replayed, about one short window
-    in 150 to 500 loses its device records, all or part of them (an H100,
-    ``scripts/profiler_windows.py``); before any graph, none of 320 did.
-    Fails unless every window counts one kernel a call."""
+    """Rows 10 and 11 at N in LM_HEAD_ROWS: one kernel a call, as the CUDA
+    driver records their device work in a graph captured over five calls
+    (``graph_nodes``): five kernel nodes, each the lm head's kernel where the
+    driver names it, no copy, set or host node, and the wrapper's count one
+    launch a call. Short ``torch.profiler`` windows, which counted this
+    before, lose their device records now and then, all or part of them,
+    before CUDA graphs were captured in the process as well as after
+    (``scripts/profiler_windows.py``), and so failed runs of a correct
+    kernel; a captured graph holds every launch."""
     import torch
 
     from mmdx_tpu_torch.ops import lm_head
 
     g = torch.Generator().manual_seed(SEED + 4)
     emb = torch.randn(32128, 512, generator=g).to(device, torch.bfloat16)
+    calls = 5
+    named = 0
     for n in LM_HEAD_ROWS:
         hidden, mask = lm_head_inputs(device, g, n)
         for name in ("lm_head_greedy", "lm_head_stats"):
             fn = getattr(lm_head, name)
-            fn(hidden, emb, mask)
-            launches = kernel_launches(lambda: fn(hidden, emb, mask))
-            if launches != 1:
-                fail(f"{name} N={n}: the profiler counts {launches:g} kernels per call, "
-                     f"not 1")
-    log(f"rows 10, 11: one kernel a call in each of {2 * len(LM_HEAD_ROWS)} profiler "
-        f"windows (N = {', '.join(map(str, LM_HEAD_ROWS))})")
+            before = fn.launches
+            types, names = graph_nodes(lambda: fn(hidden, emb, mask), calls)
+            wrapper = fn.launches - before - 1  # less the warm-up call
+            if wrapper != calls:
+                fail(f"{name} N={n}: the wrapper counted {wrapper} launches over {calls} calls")
+            if types != {"kernel": calls}:
+                fail(f"{name} N={n}: {calls} calls captured as graph nodes {types}, "
+                     f"not {calls} kernels")
+            other = [k for k in names if k is not None and "lm_head_kernel" not in k]
+            if other:
+                fail(f"{name} N={n}: the graph runs other kernels than the lm head's: {other}")
+            named += sum(k is not None for k in names)
+    log(f"rows 10, 11: one kernel a call in each of {2 * len(LM_HEAD_ROWS)} CUDA graphs of "
+        f"{calls} calls (N = {', '.join(map(str, LM_HEAD_ROWS))}); {named} of "
+        f"{2 * len(LM_HEAD_ROWS) * calls} kernel nodes named by the driver, all lm_head_kernel")
 
 
 def phase_lm_head(device, g) -> dict:
@@ -1947,6 +2020,227 @@ def phase_server(bundle, device, mode: str, n: int, gray: bool,
             app._batcher.stop(drain=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+# data_prep.synthetic_raw_examples draws each image from 41 gray gradients:
+# 400 examples hold all 41 (the feature store keeps the last row of each),
+# so the 20% held-out split leaves 33 training rows for image batches of 32
+TRAIN_EXAMPLES = 400
+TRAIN_STEPS = dict(image_batch=32, image_phase1_steps=1, image_phase2_steps=1,
+                   text_steps_per_phase=3, fusion_batch=10, checkpoint_every=5,
+                   compute_dtype="bfloat16", log_every=5)
+PUBLISHED_PARITY_TOL = 1e-5
+FAST_PARITY_GAP = 0.1
+
+
+def package_version(name: str) -> str | None:
+    """The version of an importable package, None when it does not import."""
+    import importlib
+
+    try:
+        module = importlib.import_module(name)
+    except ImportError:
+        return None
+    return str(getattr(module, "__version__", getattr(module, "version", "?")))
+
+
+def step_busy_ms(prof) -> tuple[dict[str, list[float]], dict[str, list]]:
+    """Device busy time of each train step in a profiled run: the union of
+    the intervals of the device events (kernels, copies, sets) that start
+    inside the step's ``train_step/<phase>`` range on the host. Each step
+    synchronizes the card at its start and end, so those are the step's
+    own; the backward's kernels, launched from autograd's device thread,
+    count too. A ``record_function`` range (the step's own, the optimizer's
+    ``Optimizer.step#...``) also appears on the device as an annotation
+    spanning its kernels and the gaps between them: those are left out.
+    -> ({phase: [ms per step]}, {phase: the three device events that took
+    most of its time, as (ms, name)})."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    ranges = [(e.name.split("/", 1)[1], e.time_range.start, e.time_range.end)
+              for e in events
+              if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU]
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name not in host_names)
+    busy: dict[str, list[float]] = {}
+    by_name: dict[str, dict[str, float]] = {}
+    for key, start, end in sorted(ranges, key=lambda r: r[1]):
+        us, reach = 0.0, start
+        names = by_name.setdefault(key, {})
+        for t0, t1, name in device:
+            if not start <= t0 <= end:
+                continue
+            us += max(0.0, t1 - max(t0, reach))
+            reach = max(reach, t1)
+            names[name] = names.get(name, 0.0) + (t1 - t0) / 1e3
+        busy.setdefault(key, []).append(us / 1e3)
+    top = {key: sorted(((ms, name[:60]) for name, ms in names.items()), reverse=True)[:3]
+           for key, names in by_name.items()}
+    return busy, top
+
+
+def phase_train_publish(device, counters) -> dict:
+    """Phase 5: the train-and-publish path at full width, then the
+    published bundle served in fast and turbo mode. -> the serving runs'
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmdx_tpu_torch.checkpoints.bundle import new_random_bundle
+    from mmdx_tpu_torch.checkpoints.registry import LocalModelRegistry
+    from mmdx_tpu_torch.io.store import InMemoryStore, register_store
+    from mmdx_tpu_torch.pipelines import data_prep
+    from mmdx_tpu_torch.pipelines import training_pipeline as tp
+    from mmdx_tpu_torch.pipelines.inference_pipeline import load_model_from_registry
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    packages = {name: package_version(name) for name in ("pandas", "pyarrow", "msgpack")}
+    log(f"  packages on this machine (version, None: does not import): {packages}")
+    bundle = new_random_bundle(seed=SEED)  # full width
+    store = register_store(InMemoryStore("smoke-train-bucket"))
+    examples = data_prep.synthetic_raw_examples(TRAIN_EXAMPLES, seed=SEED)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    registry = LocalModelRegistry(root / "registry")
+    if not (packages["pandas"] and packages["pyarrow"]):
+        fail(f"the feature store needs pandas and pyarrow: {packages}")
+    from mmdx_tpu_torch.io.feature_store import FeatureStore
+    from mmdx_tpu_torch.pipelines.feature_pipeline import run_feature_pipeline
+
+    fs = FeatureStore(object_store=store)
+    data_prep.prepare_raw_dataset(examples, store)
+    run_feature_pipeline(store, fs)
+
+    def train(opt):
+        return tp.run_training_pipeline(fs, registry, bundle, opt, device)
+
+    times: list[dict] = [{}, {}]  # wall ms per step of each run
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+
+    def options(fusion_steps: int, run: int) -> tp.TrainingOptions:
+        return tp.TrainingOptions(
+            fusion_steps=fusion_steps, checkpoint_dir=str(root / "ckpt"),
+            step_times=times[run], local_bundle_path=str(root / "model_bundle.mmdx"),
+            save_local_bundle=run == 1, log=lambda m: log(f"    {m}"), **TRAIN_STEPS)
+
+    runs = [train(options(5, 0))]
+    # the run resumed from step 5 under the profiler, for each step's device time
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        runs.append(train(options(10, 1)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts(counters)
+    first, second = runs
+    fusion = first["losses"]["fusion"] + second["losses"]["fusion"]
+    busy, top = step_busy_ms(prof)
+    log(f"  rows: {len(first['reports'])} in the fusion batch; two runs (fusion steps 1-5, "
+        f"then 6-10 resumed, profiled): {wall:.1f} s; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    for key in times[0]:
+        ms = busy.get(key, [])
+        log(f"  {key}: wall ms per step, synchronized: run 1 {[round(w, 2) for w in times[0][key]]}, "
+            f"run 2 (profiled) {[round(w, 2) for w in times[1][key]]}; device busy ms per "
+            f"step of run 2 {[round(b, 2) for b in ms]}"
+            + (f", {sum(ms) / sum(times[1][key]):.0%} of its wall" if ms else "")
+            + f"; most device time: {[(round(t, 2), n) for t, n in top.get(key, [])]}")
+    if set(busy) != set(times[1]) or not all(sum(v) > 0 for v in busy.values()):
+        fail(f"the profiler saw no device time for some phases: {busy}")
+    log(f"  losses: " + "; ".join(f"{k} {[round(v, 4) for v in vs]}"
+                                  for k, vs in second["losses"].items()))
+    log(f"  fusion loss first {fusion[0]:.4f}, last {fusion[-1]:.4f} over {len(fusion)} "
+        f"steps; metrics {second['metrics']}")
+    log(f"  hand-kernel launches while training: {launches}")
+    if any(launches.values()):
+        fail(f"hand-written kernels launched while training: {launches}")
+    all_losses = [v for r in runs for vs in r["losses"].values() for v in vs]
+    if not np.isfinite(all_losses).all():
+        fail(f"nonfinite training loss: {[r['losses'] for r in runs]}")
+    if len(second["losses"]["fusion"]) != 5 or len(first["losses"]["fusion"]) != 5:
+        fail("the second run did not resume from the step-5 checkpoint: fusion losses "
+             f"{first['losses']['fusion']}, {second['losses']['fusion']}")
+    if not fusion[-1] < fusion[0]:
+        fail(f"the fusion loss did not fall: first {fusion[0]}, last {fusion[-1]}")
+    if second["version"] != 2 or registry.versions("fusion_model_T5") != [1, 2]:
+        fail(f"expected versions 1 and 2 in the registry, got "
+             f"{registry.versions('fusion_model_T5')}")
+
+    # ---- the published bundle, served ----
+    t0 = time.perf_counter()
+    published = load_model_from_registry(registry)
+    log(f"  load_model_from_registry: version {published.version} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    image = examples[0].image_bytes
+    text = TEXTS[0]
+    probs = {}
+    for name, served in (("published", published), ("in-memory", second["bundle"].to_torch())):
+        engine = InferenceEngine(served, mode="parity", device=device)
+        probs[name] = engine.classify_batch([image] * 2 + [e.image_bytes for e in examples[1:3]],
+                                            TEXTS[:4])[0]
+        del engine
+    gap = float(np.abs(probs["published"] - probs["in-memory"]).max())
+    log(f"  parity on the card, published vs in-memory trained bundle: max |prob| gap "
+        f"{gap:.3g} (bar {PUBLISHED_PARITY_TOL})")
+    if gap > PUBLISHED_PARITY_TOL:
+        fail(f"the published bundle serves other probabilities than the trained one: {gap}")
+    gen = published.config.generation
+    dec_layers = published.config.report.num_decoder_layers
+    layers = published.config.text.num_layers
+    serving = {}
+    fast = InferenceEngine(published, mode="fast", device=device)
+    reset_counts(counters)
+    out, ms = synced(lambda: fast.infer(image, text))
+    serving["fast"] = read_counts(counters)
+    fast_probs = np.asarray(list(out["disease_probs"].values()), np.float32)
+    check_probs("published fast infer", fast_probs)
+    fgap = float(np.abs(fast_probs - probs["published"][0]).max())
+    log(f"  published fast infer: {ms:.1f} ms, report {len(out['report_text'])} chars, "
+        f"max |prob fast - parity| {fgap:.4f} (bar {FAST_PARITY_GAP}); launches "
+        f"{dict((k, n) for k, n in serving['fast'].items() if n)}")
+    if fgap > FAST_PARITY_GAP:
+        fail(f"published fast probabilities differ from parity by {fgap}")
+    if serving["fast"]["bert_attn"] != layers or serving["fast"]["fused_ffn"] != layers:
+        fail(f"published fast: expected {layers} launches each of K1, K2, got "
+             f"{serving['fast']}")
+    steps = check_decode_counts("published fast", serving["fast"], dec_layers,
+                                gen.min_new_tokens)
+    del fast
+    turbo = InferenceEngine(published, mode="turbo", device=device)
+    reset_counts(counters)
+    out, ms = synced(lambda: turbo.infer(image, text))
+    serving["turbo"] = read_counts(counters)
+    turbo_probs = np.asarray(list(out["disease_probs"].values()), np.float32)
+    check_probs("published turbo infer", turbo_probs)
+    tgap = float(np.abs(turbo_probs - fast_probs).max())
+    log(f"  published turbo infer: {ms:.1f} ms, int8 scales from the {turbo.scales_source}, "
+        f"max |prob turbo - fast| {tgap:.4f} (bar {TURBO_GAP}); launches "
+        f"{dict((k, n) for k, n in serving['turbo'].items() if n)}")
+    if turbo.scales_source != "bundle":
+        fail("the published bundle's turbo engine calibrated on its first batch: "
+             "the persisted int8 scales were not used")
+    if tgap > TURBO_GAP:
+        fail(f"published turbo probabilities differ from fast mode's by {tgap}")
+    t = serving["turbo"]
+    if t["int8_gemm"] != 53 or t["fused_ffn_int8"] != layers or t["bert_attn_int8"] != layers:
+        fail(f"published turbo: expected 53 K5 launches and {layers} each of K6, K7, got {t}")
+    tsteps = check_decode_counts("published turbo", t, dec_layers, gen.min_new_tokens)
+    log(f"  published bundle serves: fast {layers} K1/K2 and {dec_layers} K3/K4 per step "
+        f"over {steps} steps; turbo 53 K5, {layers} K6/K7, {dec_layers} K3/K4 per step over "
+        f"{tsteps} steps")
+    del turbo
+    tmp.cleanup()
+    return serving
+
+
 def main() -> int:
     if not (ROOT / "mmdx_tpu_torch" / "csrc").is_dir():
         fail("mmdx_tpu_torch/csrc not found next to chip_smoke.py")
@@ -1956,6 +2250,10 @@ def main() -> int:
 
     card = phase_card_and_build()
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--train"]:
+        phase_train_publish(device, launch_counters())
+        log("train-and-publish checks passed (phases 1 and 5 only)")
+        return 0
     kernel_stats = phase_kernels(device)
     if sys.argv[1:] == ["--kernels"]:
         log("kernel checks passed (phases 1-2 only)")
@@ -1999,6 +2297,11 @@ def main() -> int:
     phase_server(bundle, device, "fast", 3, gray=False)
     phase_server(bundle, device, "turbo", 2, gray=True)
     phase_server(bundle, device, "fast", 1, gray=False, greedy=True)
+    del bundle
+    log("train and publish: run_training_pipeline at full width, then the published "
+        "bundle served")
+    served = phase_train_publish(device, counters)
+    runs += tuple(served.values())
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

@@ -20,7 +20,9 @@ Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py`` and its use of
 * ``default_vocabs()`` reads the shipped tokenizer vocabs
   (``bundle.py:211-233``).
 
-Loading ``.mmdx`` (flax msgpack) is not ported yet.
+``checkpoints/bundle.py`` reads and writes the ``.mmdx`` format into and from
+the same variable tree, and ``checkpoints/train_bridge.py`` moves the tree
+into the trainable towers and back.
 """
 from __future__ import annotations
 
@@ -37,21 +39,10 @@ from mmdx_tpu_torch.models.resnet_int8 import gemm_weight, hwio_view
 ASSETS = Path(__file__).resolve().parents[2] / "mmdx_tpu" / "assets"
 
 
-@dataclass
-class TorchBundle:
-    """The port's counterpart of ``mmdx_tpu.checkpoints.bundle.ModelBundle``:
-    config, the f32 CPU model, tokenizer vocabs, class names, thresholds and
-    metadata (``int8_scales``: the turbo tower's calibrated {site: amax})."""
-
-    config: DiagnosisConfig
-    model: DiagnosisModel
-    bert_vocab: dict[str, int]
-    t5_vocab: dict[str, int]
-    class_names: list[str]
-    thresholds: list[float]
-    version: int = 1
-    t5_scores: dict[int, float] | None = None
-    metadata: dict | None = None
+class Tokenizers:
+    """The tokenizers of a bundle's vocabs (``bert_vocab``, ``t5_vocab``,
+    ``t5_scores``), shared by ``TorchBundle`` and the variable bundle of
+    ``checkpoints/bundle.py``."""
 
     def tokenizers(self):
         """(BERT WordPiece, T5 unigram) tokenizers over the C++ cores
@@ -87,6 +78,23 @@ class TorchBundle:
         if tok.native_available:
             return tok
         return WordPieceTokenizer(vocab=self.bert_vocab)
+
+
+@dataclass
+class TorchBundle(Tokenizers):
+    """The port's counterpart of ``mmdx_tpu.checkpoints.bundle.ModelBundle``:
+    config, the f32 CPU model, tokenizer vocabs, class names, thresholds and
+    metadata (``int8_scales``: the turbo tower's calibrated {site: amax})."""
+
+    config: DiagnosisConfig
+    model: DiagnosisModel
+    bert_vocab: dict[str, int]
+    t5_vocab: dict[str, int]
+    class_names: list[str]
+    thresholds: list[float]
+    version: int = 1
+    t5_scores: dict[int, float] | None = None
+    metadata: dict | None = None
 
 
 def staged_vocab_file(kind: str, lines: list[str]) -> Path:
@@ -238,13 +246,20 @@ def variables_to_state_dict(variables: dict, config: DiagnosisConfig) -> dict:
         sd[f"image_encoder.{k}"] = v
     for k, v in _text_state(params["text_encoder"], config).items():
         sd[f"text_encoder.{k}"] = v
-    f = params["fusion"]
+    for k, v in fusion_state(params["fusion"], config).items():
+        sd[f"fusion.{k}"] = v
+    return sd
+
+
+def fusion_state(f: dict, config: DiagnosisConfig) -> dict:
+    """The fusion params tree -> ``FusionModel``'s state dict (numpy)."""
+    sd = {}
     for k in ("fuse_dense", "disease_head", "cond_proj"):
-        _dense(sd, f"fusion.{k}", f[k])
-    sd["fusion.fuse_ln.scale"] = f["fuse_ln"]["scale"]
-    sd["fusion.fuse_ln.bias"] = f["fuse_ln"]["bias"]
+        _dense(sd, k, f[k])
+    sd["fuse_ln.scale"] = f["fuse_ln"]["scale"]
+    sd["fuse_ln.bias"] = f["fuse_ln"]["bias"]
     for k, v in _t5_state(f["report_model"], config.report.tie_word_embeddings).items():
-        sd[f"fusion.report_model.{k}"] = v
+        sd[f"report_model.{k}"] = v
     return sd
 
 
@@ -264,8 +279,10 @@ def variables_to_torch(variables: dict, config: DiagnosisConfig) -> DiagnosisMod
 
 def bundle_from_variables(variables: dict, config: DiagnosisConfig, *,
                           class_names=None, thresholds=None, version: int = 1,
-                          metadata: dict | None = None) -> TorchBundle:
-    bert, t5, scores = default_vocabs()
+                          metadata: dict | None = None, vocabs=None) -> TorchBundle:
+    """A serving bundle from a JAX variable tree; ``vocabs`` is (bert_vocab,
+    t5_vocab, t5_scores), the shipped ones when None."""
+    bert, t5, scores = vocabs or default_vocabs()
     return TorchBundle(
         config=config, model=variables_to_torch(variables, config),
         bert_vocab=bert, t5_vocab=t5, t5_scores=scores,

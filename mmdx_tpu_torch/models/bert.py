@@ -27,6 +27,15 @@ per-column weight scales, tanh-GELU) from weights quantized once by
 (the JAX blocks quantize ``w.astype(self.dtype)`` at every call, ``bert.py:81-82,
 145-146``: the same numbers). Beyond the fused block's length the attention
 runs the bf16 projections and the FFN stays W8A8, as in the JAX route.
+
+Training runs none of these routes. ``TextEncoder.backbone_pooled``,
+``heads`` and ``encode_train`` run every layer through ``forward_train``:
+the JAX package's unfused XLA layer (``bert.py:104-160``, the route its
+training steps take, where no Pallas kernel runs) in plain differentiable
+ops, with ``hidden_dropout`` on the embeddings, the attention output and
+the FFN output when a ``drop`` function is given (``layers.Dropout``,
+drawing from an explicit ``torch.Generator``). K1, K2 and row 9 have no backward, so
+they never run under autograd.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmdx_tpu_torch.config import TextEncoderConfig
-from mmdx_tpu_torch.models.layers import Dense, LayerNorm, param
+from mmdx_tpu_torch.models.layers import Dense, LayerNorm, matmul_f32, param
 from mmdx_tpu_torch.ops import bert_attn, flash_attention, fused_ffn
 from mmdx_tpu_torch.ops.pooling import masked_mean_pool
 
@@ -48,10 +57,10 @@ def attention_einsum(q, k, v, bias) -> torch.Tensor:
     L, d] in the model dtype, bias [B, 1, 1, L] f32 -> f32 context [B, heads,
     L, d]. Plain ops, as XLA computes this path outside any Pallas kernel."""
     d = q.shape[-1]
-    s = (q.to(F32) @ k.to(F32).transpose(-1, -2)) / torch.tensor(
+    s = matmul_f32(q, k.transpose(-1, -2)) / torch.tensor(
         float(d), dtype=F32, device=q.device).sqrt()
     p = torch.softmax(s + bias, dim=-1).to(q.dtype)
-    return p.to(F32) @ v.to(F32)
+    return matmul_f32(p, v)
 
 
 class BertLayer(nn.Module):
@@ -81,10 +90,11 @@ class BertLayer(nn.Module):
             return "flash"
         return "einsum"
 
-    def _attention_unfused(self, x, kmask, seq_len: int, ctx_fn):
+    def _attention_unfused(self, x, kmask, seq_len: int, ctx_fn, drop=None):
         """The projections, ``ctx_fn(q, k, v, bias)`` over [B, heads, L, d]
-        views of the merged q|k|v rows, the out-projection, residual and
-        LayerNorm, in the model dtype as flax's Dense and LayerNorm."""
+        views of the merged q|k|v rows, the out-projection (through ``drop``
+        when training), residual and LayerNorm, in the model dtype as flax's
+        Dense and LayerNorm."""
         h, heads = self.cfg.hidden_size, self.cfg.num_heads
         b = x.shape[0] // seq_len
         qkv = self.attn_qkv(x)
@@ -95,7 +105,16 @@ class BertLayer(nn.Module):
         q, k, v = (split(t) for t in qkv.split(h, dim=1))
         ctx = ctx_fn(q, k, v, kmask.reshape(b, 1, 1, seq_len))
         ctx = ctx.permute(0, 2, 1, 3).reshape(b * seq_len, h).to(x.dtype)
-        return self.attn_ln(x + self.attn_out(ctx))
+        out = self.attn_out(ctx)
+        return self.attn_ln(x + (out if drop is None else drop(out)))
+
+    def forward_train(self, x, kmask, seq_len: int, drop=None):
+        """The unfused layer of the JAX training steps: ``attention_einsum``
+        attention, exact-GELU FFN, each output through ``drop`` (when given)
+        before its residual and LayerNorm. x [B*L, H] -> [B*L, H]."""
+        x = self._attention_unfused(x, kmask, seq_len, attention_einsum, drop)
+        ffn = self.ffn_out(F.gelu(self.ffn_in(x)))
+        return self.ffn_ln(x + (ffn if drop is None else drop(ffn)))
 
     def forward(self, x, kmask, seq_len: int, kernels: bool, int8: bool = False):
         """x [B*L, H]; kmask [B*L] f32 additive -> [B*L, H]."""
@@ -145,9 +164,8 @@ class BertEncoder(nn.Module):
         # uses them
         self.pooler = Dense(h, h) if pooler else None
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None,
-                kernels: bool = False, int8: bool = False):
-        """ids/mask [B, L] -> last hidden state [B, L, H]."""
+    def _embed(self, input_ids, attention_mask, token_type_ids):
+        """-> (embeddings after LayerNorm [B*L, H], additive key mask [B*L])."""
         b, l = input_ids.shape
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -155,10 +173,27 @@ class BertEncoder(nn.Module):
         emb = F.embedding(input_ids, self.word_embeddings)
         emb = emb + F.embedding(pos, self.position_embeddings)[None]
         emb = emb + F.embedding(token_type_ids, self.token_type_embeddings)
-        x = self.embeddings_ln(emb).reshape(b * l, -1)
         kmask = ((1.0 - attention_mask.to(torch.float32)) * NEG_INF).reshape(b * l)
+        return self.embeddings_ln(emb).reshape(b * l, -1), kmask
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                kernels: bool = False, int8: bool = False):
+        """ids/mask [B, L] -> last hidden state [B, L, H]."""
+        b, l = input_ids.shape
+        x, kmask = self._embed(input_ids, attention_mask, token_type_ids)
         for layer in self.layers:
             x = layer(x, kmask, l, kernels, int8)
+        return x.reshape(b, l, -1)
+
+    def forward_train(self, input_ids, attention_mask, token_type_ids=None, drop=None):
+        """The training route (``BertLayer.forward_train``); ``drop`` also
+        applies to the embeddings, as ``BertEncoder.__call__`` (``:185``)."""
+        b, l = input_ids.shape
+        x, kmask = self._embed(input_ids, attention_mask, token_type_ids)
+        if drop is not None:
+            x = drop(x)
+        for layer in self.layers:
+            x = layer.forward_train(x, kmask, l, drop)
         return x.reshape(b, l, -1)
 
 
@@ -183,6 +218,28 @@ class TextEncoder(nn.Module):
         """-> embeddings [B, d_txt]."""
         hidden = self.bert(input_ids, attention_mask, token_type_ids, kernels, int8)
         return self.proj(masked_mean_pool(hidden, attention_mask))
+
+    def backbone_pooled(self, input_ids, attention_mask, token_type_ids=None,
+                        drop=None):
+        """Masked-mean-pooled training-route backbone output [B, H] (phase 1
+        runs it outside the grad, ``TextEncoder.backbone_pooled``)."""
+        hidden = self.bert.forward_train(input_ids, attention_mask, token_type_ids, drop)
+        return masked_mean_pool(hidden, attention_mask)
+
+    def heads(self, pooled) -> dict:
+        """Projection + classifier over the pooled vector -> {"embeddings",
+        "logits"}."""
+        z = self.proj(pooled)
+        out = {"embeddings": z}
+        if self.classifier is not None:
+            out["logits"] = self.classifier(z)
+        return out
+
+    def encode_train(self, input_ids, attention_mask, token_type_ids=None,
+                     drop=None) -> dict:
+        """The whole tower on the training route -> {"embeddings", "logits"}."""
+        return self.heads(self.backbone_pooled(input_ids, attention_mask,
+                                               token_type_ids, drop))
 
     def classify(self, z):
         """Embeddings -> the warm-up classifier's probabilities [B, n_disease]

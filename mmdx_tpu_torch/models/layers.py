@@ -3,7 +3,9 @@
 ``Dense`` keeps flax ``nn.Dense``'s ``kernel [in, out]`` so the ported
 kernels take it as the row-major B operand of ``x @ W`` and the weight bridge
 (checkpoints/bridge.py) copies trees without transposes. Parameters are
-inference-only (``requires_grad=False``).
+made with ``requires_grad=False``; the trainer's bridge
+(checkpoints/train_bridge.py) turns them on for the towers it trains.
+``Dropout`` is the training path's seeded dropout.
 """
 from __future__ import annotations
 
@@ -11,6 +13,15 @@ import torch
 from torch import nn
 
 from mmdx_tpu_torch.ops.gemm import layer_norm_f32
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over f32 operands with an f32 result, under autocast too (it
+    would otherwise compute and return bf16): the JAX package's
+    ``preferred_element_type=float32`` products, whose bf16 operands are
+    exact in f32."""
+    with torch.autocast(a.device.type, enabled=False):
+        return a.to(torch.float32) @ b.to(torch.float32)
 
 
 def param(*shape) -> nn.Parameter:
@@ -43,6 +54,22 @@ class Dense(nn.Module):
     def forward(self, x):
         y = x @ self.kernel
         return y if self.bias is None else y + self.bias
+
+
+class Dropout:
+    """Inverted dropout at ``rate`` drawing its masks from ``generator``
+    (keep with probability 1 - rate, kept values scaled by 1 / (1 - rate),
+    as flax ``nn.Dropout``); a seeded generator makes a run reproducible."""
+
+    def __init__(self, rate: float, generator: torch.Generator):
+        self.rate, self.generator = rate, generator
+
+    def __call__(self, x):
+        if self.rate <= 0.0:
+            return x
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(
+            1.0 - self.rate, generator=self.generator)
+        return x * keep.to(x.dtype) / (1.0 - self.rate)
 
 
 class LayerNorm(nn.Module):

@@ -36,6 +36,13 @@ one, ``tests/test_kv_int8.py:200-219``). The heads-major ``decode_step`` /
 ``T5Attention.step`` / ``attend`` cache was a TPU layout choice and is not
 ported. No segmented cache growth or 8-row alignment padding: those were TPU
 layout fixes. Step logits stay f32.
+
+Training runs the teacher-forced ``T5.decode`` (``t5.py:557-582``): the
+whole-sequence decoder with the causal relative position bias, cross
+attention over the conditioning tokens, and the tied lm head over the full
+vocabulary, in plain differentiable ops (``T5Attention.forward``,
+``T5DecoderLayer.forward``), on the same parameters as the decode step.
+``shift_right`` is ``t5.py:747``.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmdx_tpu_torch.config import ReportDecoderConfig
-from mmdx_tpu_torch.models.layers import Dense, param
+from mmdx_tpu_torch.models.layers import Dense, matmul_f32, param
 from mmdx_tpu_torch.ops import beam_attn, t5_step
 from mmdx_tpu_torch.ops.lm_head import LazyLogits
 
@@ -108,6 +115,15 @@ class RelativeBias(nn.Module):
         self.embedding = param(num_buckets, heads)
 
 
+def shift_right(labels: torch.Tensor, decoder_start_token_id: int = 0,
+                pad_id: int = 0) -> torch.Tensor:
+    """HF _shift_right: prepend the start token, drop the last, -100 -> pad."""
+    start = torch.full((labels.shape[0], 1), decoder_start_token_id,
+                       dtype=labels.dtype, device=labels.device)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return torch.where(shifted == -100, torch.full_like(shifted, pad_id), shifted)
+
+
 class T5Attention(nn.Module):
     def __init__(self, cfg: ReportDecoderConfig):
         super().__init__()
@@ -117,6 +133,23 @@ class T5Attention(nn.Module):
         self.k = Dense(cfg.d_model, inner, bias=False)
         self.v = Dense(cfg.d_model, inner, bias=False)
         self.o = Dense(inner, cfg.d_model, bias=False)
+
+    def forward(self, hidden, kv_hidden, bias):
+        """Whole-sequence attention (``T5Attention.__call__``): hidden [B, Lq,
+        D], kv_hidden [B, Lk, D], bias [*, h, Lq, Lk] additive f32; f32
+        scores (no scaling), f32 softmax, probabilities and context in the
+        model dtype."""
+        h, d = self.cfg.num_heads, self.cfg.d_kv
+        b, lq, _ = hidden.shape
+
+        def split(t):
+            return t.reshape(b, t.shape[1], h, d).transpose(1, 2)
+
+        q, k, v = split(self.q(hidden)), split(self.k(kv_hidden)), split(self.v(kv_hidden))
+        scores = matmul_f32(q, k.transpose(-1, -2)) + bias
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        ctx = matmul_f32(probs, v).to(q.dtype)
+        return self.o(ctx.transpose(1, 2).reshape(b, lq, h * d))
 
     def step_beam(self, y, cache: dict, pos: int, mask, bias_k, kernels: bool,
                   deferred: bool):
@@ -171,6 +204,16 @@ class T5DecoderLayer(nn.Module):
         self.ffn_ln = RMSNorm(cfg.d_model, cfg.layer_norm_eps)
         self.ffn_wi = Dense(cfg.d_model, cfg.d_ff, bias=False)
         self.ffn_wo = Dense(cfg.d_ff, cfg.d_model, bias=False)
+
+    def forward(self, hidden, self_bias, enc_hidden, enc_bias):
+        """Teacher-forced layer (``T5DecoderLayer.__call__``): [B, L, D] ->
+        [B, L, D]."""
+        y = self.self_ln(hidden)
+        hidden = hidden + self.self_attn(y, y, self_bias)
+        y = self.cross_ln(hidden)
+        hidden = hidden + self.cross_attn(y, enc_hidden, enc_bias)
+        y = self.ffn_ln(hidden)
+        return hidden + self.ffn_wo(F.relu(self.ffn_wi(y)))
 
     def step_beam(self, hidden, cache, static_kv, pos: int, mask, bias_k,
                   enc_bias, kernels: bool, deferred: bool):
@@ -249,6 +292,22 @@ class T5(nn.Module):
             max_distance=cfg.relative_attention_max_distance)
         causal = torch.tril(torch.ones(max_len, max_len, device=bias.device))
         return bias + (1.0 - causal)[None, None] * NEG_INF
+
+    def decode(self, decoder_input_ids, encoder_hidden, encoder_mask):
+        """Teacher-forced decode -> f32 logits [B, L, vocab] (``T5.decode``):
+        causal self-attention over the whole length with the relative bias,
+        cross-attention over ``encoder_hidden`` [B, K, D] under
+        ``encoder_mask`` [B, K]."""
+        cfg = self.cfg
+        hidden = F.embedding(decoder_input_ids, self.shared)
+        self_bias = self.decode_self_bias(decoder_input_ids.shape[1])
+        enc_bias = (1.0 - encoder_mask[:, None, None, :].to(F32)) * NEG_INF
+        for layer in self.decoder_layers:
+            hidden = layer(hidden, self_bias, encoder_hidden, enc_bias)
+        hidden = self.decoder_final_ln(hidden)
+        if cfg.tie_word_embeddings:
+            return matmul_f32(hidden * (cfg.d_model ** -0.5), self.shared.t())
+        return self.lm_head(hidden).to(F32)
 
     def _lm_weight_f32(self):
         """The tied embedding as f32 for f32 step logits (cached copy when the

@@ -1,10 +1,11 @@
-"""Bundle and engine caches for serving, and the reference's ``inference()``.
+"""Bundle and engine caches for serving, the registry load, and the
+reference's ``inference()``.
 
-Port of ``mmdx_tpu/pipelines/inference_pipeline.py`` (``get_model_bundle``,
-``get_engine``, ``inference``). The port serves the reference-format
-``model_bundle.pt`` (``mmdx_tpu.checkpoints.torch_export.bundle_to_torch``
-writes one from any ``.mmdx``); loading ``.mmdx`` directly needs flax's msgpack layout and is not
-ported yet.
+Port of ``mmdx_tpu/pipelines/inference_pipeline.py``
+(``load_model_from_registry``, ``default_bundle_path``, ``get_model_bundle``,
+``get_engine``, ``inference``). ``get_model_bundle`` serves an ``.mmdx``
+bundle (``checkpoints/bundle.py``, either package's) or the reference's
+``model_bundle.pt``, told apart by the 8-byte magic.
 """
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ import threading
 from pathlib import Path
 
 from mmdx_tpu_torch.checkpoints.bridge import TorchBundle, load_reference_bundle_pt
+from mmdx_tpu_torch.checkpoints.bundle import MAGIC, load_bundle
 from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+DEFAULT_MODEL_NAME = "fusion_model_T5"  # the reference's registry name
 
 _ENGINES: dict[tuple, InferenceEngine] = {}
 _BUNDLE: TorchBundle | None = None
@@ -21,15 +25,26 @@ _LOCK = threading.Lock()
 _ENGINE_CACHE_MAX = 4  # old engines pin a full weight set on the device
 
 
+def load_model_from_registry(registry, model_name: str = DEFAULT_MODEL_NAME,
+                             version: int | None = None) -> TorchBundle:
+    """The registry's bundle (latest version unless ``version``), ready to
+    serve (``checkpoints/registry.LocalModelRegistry``)."""
+    return registry.get_model(model_name, version).to_torch()
+
+
 def default_bundle_path() -> Path:
+    """``MMDX_BUNDLE_PATH`` (or ``CXR_BUNDLE_PATH``), else the JAX package's
+    default, ``mmdx_tpu/model/model_bundle.mmdx``: both packages serve the
+    same bundle."""
     env = os.getenv("MMDX_BUNDLE_PATH") or os.getenv("CXR_BUNDLE_PATH")
     if env:
         return Path(env)
-    return Path(__file__).resolve().parents[2] / "mmdx_tpu" / "model" / "model_bundle.pt"
+    return Path(__file__).resolve().parents[2] / "mmdx_tpu" / "model" / "model_bundle.mmdx"
 
 
 def get_model_bundle(path: str | os.PathLike | None = None) -> TorchBundle:
-    """Thread-safe lazily cached bundle load (``model_bundle.pt`` only)."""
+    """Thread-safe lazily cached bundle load: ``.mmdx`` or the reference's
+    ``model_bundle.pt``."""
     global _BUNDLE
     if _BUNDLE is not None and path is None:
         return _BUNDLE
@@ -40,13 +55,11 @@ def get_model_bundle(path: str | os.PathLike | None = None) -> TorchBundle:
         if not bundle_path.is_file():
             raise FileNotFoundError(f"Bundle not found: {bundle_path}")
         with bundle_path.open("rb") as fh:
-            if fh.read(8) == b"MMDX0001":
-                raise NotImplementedError(
-                    f"{bundle_path} is an .mmdx bundle: the PyTorch port loads the "
-                    "reference model_bundle.pt (python -m "
-                    "mmdx_tpu.checkpoints.torch_export converts); an .mmdx loader "
-                    "is on the ROADMAP")
-        bundle = load_reference_bundle_pt(bundle_path)
+            magic = fh.read(8)
+        if magic == MAGIC:
+            bundle = load_bundle(bundle_path).to_torch()
+        else:
+            bundle = load_reference_bundle_pt(bundle_path)
         if path is None:
             _BUNDLE = bundle
         return bundle

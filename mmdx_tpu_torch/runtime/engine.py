@@ -140,6 +140,7 @@ class InferenceEngine:
         )) if mode == "turbo" else ()
         self._qparams = None
         self.calibration_ms = None  # host time of the first-batch calibration
+        self.scales_source = None  # turbo: "bundle" (persisted) or "first batch"
         self.canonical_size = canonical_size
         self.device = resolve_device(device)
         self.dtype = torch.float32 if mode == "parity" else torch.bfloat16
@@ -321,6 +322,7 @@ class InferenceEngine:
         scales = (self.bundle.metadata or {}).get("int8_scales")
         if scales and set(ri.calibration_sites()) - set(scales):
             scales = None
+        self.scales_source = "bundle" if scales else "first batch"
         if not scales:
             print("[mmdx] turbo: no persisted int8_scales in the bundle — "
                   f"calibrating from the first batch ({len(images)} image(s)); "

@@ -7,7 +7,8 @@ window on one CUDA card, by the way the window is taken.
 Each variant runs in a process of its own (a fresh CUPTI), builds the port's
 kernels, and takes WINDOWS profiler windows of CALLS calls of the streamed
 lm head's greedy kernel (row 10, N = 64, T5 vocabulary 32128 x 512, one
-kernel a call), the short window ``chip_smoke.kernel_launches`` takes. It
+kernel a call), the short window ``chip_smoke.py`` took to count launches
+before it read them from a captured graph (``chip_smoke.graph_nodes``). It
 prints, per variant, the windows whose trace held no CUDA kernel event, and
 the kernels counted per call in the others:
 

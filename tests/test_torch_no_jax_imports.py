@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``mmdx_tpu_torch/``, nor
 ``chip_smoke.py`` or the port's scripts on the card (profiling, kernel
-timing, ablation, ptxas report, profiler windows), imports jax, flax or any
-module of the JAX package ``mmdx_tpu`` (it keeps its own copies of the
-framework-free modules it needs). Checked on the source with ``ast``, so
+timing, ablation, ptxas report, profiler windows), imports jax, flax, optax
+or any module of the JAX package ``mmdx_tpu`` (it keeps its own copies of
+the framework-free modules it needs). Checked on the source with ``ast``, so
 imports inside functions count too."""
 import ast
 from pathlib import Path
@@ -14,11 +14,11 @@ SOURCES = sorted((ROOT / "mmdx_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [ROOT / "scripts" / f"{name}.py" for name in (
         "profile_torch_port", "bench_decode_kernels", "ablate_gemm", "ptxas_report",
         "profiler_windows")]
-FORBIDDEN = ("jax", "flax", "mmdx_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "mmdx_tpu")
 
 
 def forbidden_imports(tree: ast.AST) -> list[str]:
-    """Module names of every import of jax, flax or mmdx_tpu (not
+    """Module names of every import of jax, flax, optax or mmdx_tpu (not
     mmdx_tpu_torch) in ``tree``."""
     names = []
     for node in ast.walk(tree):
