@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --kernels  # phases 1-2 only (build + kernel checks)
     python3 chip_smoke.py --train    # phases 1 and 5 only (build + train and publish)
+    python3 chip_smoke.py --ops      # phases 1 and 6 only (build + the operations path)
 
 Phases (any failure exits nonzero):
   1. card and build: the card's name and power limit, torch/CUDA/nvcc
@@ -84,7 +85,29 @@ Phases (any failure exits nonzero):
      within 1e-5 of the in-memory trained bundle's, one infer in fast mode
      (K1, K2 once per layer, K3, K4 per step; within 0.1 of parity) and one
      in turbo mode from the persisted int8 scales (no first-batch
-     calibration; K5-K7 and K3, K4; within TURBO_GAP of fast).
+     calibration; K5-K7 and K3, K4; within TURBO_GAP of fast);
+  6. the operations path at full width, in a temporary directory:
+     (a) the daily jobs through scheduler.commands.main on the card:
+     prepare_raw_data (OPS_EXAMPLES synthetic studies), the feature
+     pipeline, the training pipeline (OPS_FUSION_STEPS fusion steps, the
+     rest at TrainingOptions' defaults, f32) into a local registry (version
+     1) and MMDX_BUNDLE_PATH, each command's wall time, no hand-kernel launch
+     while training; a failing command re-raises and calls a local function
+     notifier, and as a CLI exits nonzero with the log notifier's line;
+     (b) pipelines.batch_inference.main in process on OPS_STUDIES PNGs from
+     seed 0 (512x512 RGB, 640x480 gray, 480x600 RGB; details for half),
+     serving (a)'s bundle: --mode fast --gen beam and --mode turbo --gen
+     greedy at --batch 32 (a full chunk and a ragged tail of 8), each line's
+     keys, probabilities and report (its generated ids' text, 150-180
+     tokens), studies/s over the chunks (Timings), K1, K2, K3, K4 (fast) and
+     K5-K7, row 5, K4 (turbo) counted, and the fast lines held to
+     classify_batch + generate_reports on the same chunks (probabilities
+     within 1e-6, the same reports);
+     (c) (a)'s bundle exported to model_bundle.pt (read back through
+     get_model_bundle) and to the registry directory (read back through
+     bundle_from_torch_registry_dir), each served by a fast engine with the
+     .mmdx bundle's probabilities exactly on 4 studies, the registry
+     directory's also with the same greedy token ids.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a card the
@@ -1719,23 +1742,40 @@ def phase_turbo(device, bundle, images, counters, fast, fast_probs):
     return launches, turbo
 
 
+class env_set:
+    """Set environment variables for a block (None removes one), then
+    restore them."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def engine_with(bundle, device, env: dict, mode: str = "fast"):
     """An engine built with the switches ``env`` set (the engine reads them
     once, at construction)."""
-    import os
-
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with env_set(**env):
         return InferenceEngine(bundle, mode=mode, device=device)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
 
 
 def phase_decode_variants(device, bundle, fast, z4, counters):
@@ -2241,6 +2281,290 @@ def phase_train_publish(device, counters) -> dict:
     return serving
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+OPS_EXAMPLES = 60  # MMDX_PREP_EXAMPLES: 33 rows after the feature store's dedup
+OPS_FUSION_STEPS = 10  # MMDX_FUSION_STEPS
+OPS_STUDIES = 40  # batch inference: a full chunk of 32 and a ragged tail of 8
+OPS_BATCH = 32
+# 512x512 RGB, 640x480 gray (H x W) and 480x600 RGB studies, in turn
+OPS_SHAPES = [(512, 512, 3), (640, 480, 1), (480, 600, 3)]
+
+
+def ops_studies(root: Path) -> tuple[Path, Path]:
+    """OPS_STUDIES PNG studies from seed 0 in ``root/studies`` and patient
+    details for every second one -> (image dir, details json)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    d = root / "studies"
+    d.mkdir()
+    rng = np.random.default_rng(SEED)
+    details = {}
+    for i in range(OPS_STUDIES):
+        h, w, c = OPS_SHAPES[i % len(OPS_SHAPES)]
+        a = rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(a[..., 0] if c == 1 else a).save(buf, format="PNG")
+        (d / f"study_{i:03d}.png").write_bytes(buf.getvalue())
+        if i % 2 == 0:
+            details[f"study_{i:03d}.png"] = TEXTS[i // 2 % len(TEXTS)]
+    (root / "details.json").write_text(json.dumps(details))
+    return d, root / "details.json"
+
+
+def recording_generate():
+    """Patch ``InferenceEngine.generate_report_ids`` to keep each call's ids
+    (a list, in call order); undo with the returned function."""
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    calls, original = [], InferenceEngine.generate_report_ids
+
+    def recorded(self, *args, **kwargs):
+        ids = original(self, *args, **kwargs)
+        calls.append(ids)
+        return ids
+
+    InferenceEngine.generate_report_ids = recorded
+    return calls, lambda: setattr(InferenceEngine, "generate_report_ids", original)
+
+
+def ops_daily_jobs(root: Path, counters) -> Path:
+    """(a): the three daily commands through ``scheduler.commands.main`` on
+    the card; a failing command. -> the published bundle's path."""
+    import os
+
+    from mmdx_tpu_torch.checkpoints.registry import LocalModelRegistry
+    from mmdx_tpu_torch.scheduler import commands, notify
+
+    walls = {}
+    with env_set(MMDX_DATA_ROOT=str(root / "data"), MMDX_REGISTRY_ROOT=None,
+                 MMDX_PREP_EXAMPLES=str(OPS_EXAMPLES), MMDX_FUSION_STEPS=str(OPS_FUSION_STEPS),
+                 MMDX_BUNDLE_PATH=str(root / "local" / "model_bundle.mmdx")):
+        for name in ("prepare_raw_data", "run_daily_feature_pipeline",
+                     "run_daily_training_pipeline"):
+            if name == "run_daily_training_pipeline":
+                reset_counts(counters)
+            rc, walls[name] = synced(lambda: commands.main([name]))
+            if rc != 0:
+                fail(f"{name} returned {rc}")
+        launches = read_counts(counters)
+    log("  daily jobs on the card, wall per command (synchronized): "
+        + ", ".join(f"{k} {v / 1e3:.1f} s" for k, v in walls.items()))
+    if any(launches.values()):
+        fail(f"hand-written kernels launched while training: {launches}")
+    registry = LocalModelRegistry(root / "data" / "registry")
+    if registry.versions("fusion_model_T5") != [1]:
+        fail(f"expected version 1 in the registry, got {registry.versions('fusion_model_T5')}")
+    if not (root / "local" / "model_bundle.mmdx").is_file():
+        fail("the training command did not write the bundle to MMDX_BUNDLE_PATH")
+    log("  registry holds version 1; the bundle is also at MMDX_BUNDLE_PATH; no hand-kernel "
+        "launch while training")
+
+    # a failing command: the feature pipeline over a data root with no raw data
+    events = []
+    saved = notify.notifier_from_env
+    notify.notifier_from_env = lambda: events.append
+    try:
+        with env_set(MMDX_DATA_ROOT=str(root / "empty")):
+            try:
+                commands.main(["run_daily_feature_pipeline"])
+            except Exception as err:  # the command re-raises; so the CLI exits nonzero
+                raised = err
+            else:
+                raised = None
+    finally:
+        notify.notifier_from_env = saved
+    if raised is None or [(e["job"], e["status"]) for e in events] != [
+            ("run_daily_feature_pipeline", "failed")]:
+        fail(f"a failing command: raised {raised!r}, notified {events}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "mmdx_tpu_torch.scheduler.commands",
+         "run_daily_feature_pipeline"], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, MMDX_DATA_ROOT=str(root / "empty"), MMDX_NOTIFY_WEBHOOK="",
+                 MMDX_NOTIFY_EMAIL=""), timeout=300)
+    if cli.returncode == 0 or "[mmdx notify] run_daily_feature_pipeline: failed" not in cli.stderr:
+        fail(f"the failing command's CLI: exit {cli.returncode}, stderr {cli.stderr[-2000:]}")
+    log(f"  a failing command: re-raised {type(raised).__name__} and called the local "
+        f"notifier once; as a CLI it exits {cli.returncode} with the log notifier's line")
+    return root / "data" / "registry" / "fusion_model_T5" / "v1" / "bundle.mmdx"
+
+
+def ops_batch_inference(root: Path, bundle_path: Path, device, counters, card) -> dict:
+    """(b): the batch CLI in fast beam-4 and turbo greedy mode. -> launches."""
+    import numpy as np
+
+    from mmdx_tpu_torch.io.images import wire_image_u8
+    from mmdx_tpu_torch.pipelines import batch_inference
+    from mmdx_tpu_torch.pipelines.inference_pipeline import get_model_bundle
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+    from mmdx_tpu_torch.runtime.profiler import Timings
+
+    images, details = ops_studies(root)
+    bundle = get_model_bundle(bundle_path)
+    config = bundle.config
+    gen, layers = config.generation, config.text.num_layers
+    dec_layers = config.report.num_decoder_layers
+    chunks = -(-OPS_STUDIES // OPS_BATCH)
+    total, lines = {}, {}
+    for mode, how in (("fast", "beam"), ("turbo", "greedy")):
+        out = root / f"{mode}.jsonl"
+        timings = Timings()
+        calls, undo = recording_generate()
+        reset_counts(counters)
+        try:
+            n, ms = synced(lambda: batch_inference.main(
+                ["--images", str(images), "--out", str(out), "--bundle", str(bundle_path),
+                 "--details-json", str(details), "--mode", mode, "--gen", how,
+                 "--batch", str(OPS_BATCH)], timings=timings))
+        finally:
+            undo()
+        launches = read_counts(counters)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rows = [json.loads(line) for line in out.read_text().splitlines()]
+        lines[mode] = rows
+        if n != OPS_STUDIES or [r["image"] for r in rows] != sorted(
+                p.name for p in images.iterdir()):
+            fail(f"batch {mode}: expected {OPS_STUDIES} lines in sorted filename order")
+        ids = np.concatenate(calls) if calls else np.zeros((0, 1), np.int64)
+        if len(calls) != chunks or len(ids) != OPS_STUDIES:
+            fail(f"batch {mode}: expected {chunks} generate calls over {OPS_STUDIES} "
+                 f"studies, got {[len(c) for c in calls]}")
+        lens = check_reports(f"batch {mode}", ids, gen)
+        texts = bundle.tokenizers()[1].batch_decode(ids, skip_special_tokens=True)
+        for r, text in zip(rows, texts):
+            probs = np.asarray(list(r["disease_probs"].values()), np.float32)
+            if set(r) != {"image", "report_text", "disease_probs", "disease_vector",
+                          "model_version"} or r["model_version"] != 1:
+                fail(f"batch {mode}: bad line {r}")
+            check_probs(f"batch {mode} {r['image']}", probs)
+            if len(r["disease_vector"]) != 13 or not r["report_text"] or \
+                    r["report_text"] != text:
+                fail(f"batch {mode} {r['image']}: empty report or not its ids' text")
+        chunk = timings.summary()["chunk"]
+        rate = OPS_STUDIES / chunk["total_s"]
+        log(f"  batch {mode} --gen {how} --batch {OPS_BATCH}: {OPS_STUDIES} studies, "
+            f"{rate:.2f} studies/s over the chunks (Timings, device-synchronized; chunk "
+            f"walls {[round(1e3 * t, 1) for t in timings.records['chunk']]} ms), whole CLI "
+            f"{ms / 1e3:.1f} s (bundle load and engine build included); report tokens "
+            f"{min(lens)}-{max(lens)}; card: {card}")
+        log(f"  batch {mode} launches: {dict((k, v) for k, v in launches.items() if v)}")
+        if mode == "fast":
+            if launches["bert_attn"] != chunks * layers or \
+                    launches["fused_ffn"] != chunks * layers:
+                fail(f"batch fast: expected {chunks * layers} launches each of K1, K2, got "
+                     f"{launches}")
+            steps = check_decode_counts("batch fast", launches, dec_layers,
+                                        chunks * gen.min_new_tokens)
+        else:
+            if launches["int8_gemm"] != 53 * chunks or \
+                    launches["fused_ffn_int8"] != chunks * layers or \
+                    launches["bert_attn_int8"] != chunks * layers:
+                fail(f"batch turbo: expected {53 * chunks} K5 launches and {chunks * layers} "
+                     f"each of K6, K7, got {launches}")
+            steps = check_decode_counts("batch turbo", launches, dec_layers,
+                                        chunks * gen.min_new_tokens, read="beam_attn")
+        log(f"  batch {mode}: {dec_layers} K4 and {dec_layers} "
+            f"{'K3' if mode == 'fast' else 'row 5'} launches per decode step over {steps} "
+            f"steps, as expected")
+
+    # the fast lines against the engine on the same chunks
+    fast = InferenceEngine(bundle, mode="fast", canonical_size=config.image.resize_size,
+                           device=device)
+    texts = json.loads(details.read_text())
+    paths = sorted(images.iterdir())
+    want = []
+    for i in range(0, OPS_STUDIES, OPS_BATCH):
+        chunk = paths[i:i + OPS_BATCH]
+        imgs = [wire_image_u8(p.read_bytes(), config.image.resize_size, square=True)
+                for p in chunk]
+        probs, z_img, z_txt = fast.classify_batch(imgs, [texts.get(p.name, "") for p in chunk],
+                                                  pad_to=OPS_BATCH)
+        want += list(zip(probs, fast.generate_reports(z_img, z_txt)))
+    gap = max(float(np.abs(np.asarray(list(r["disease_probs"].values()), np.float32)
+                           - w[0]).max()) for r, w in zip(lines["fast"], want))
+    same = sum(r["report_text"] == w[1] for r, w in zip(lines["fast"], want))
+    log(f"  batch fast lines against classify_batch + generate_reports on the same chunks: "
+        f"max |prob| gap {gap:.3g} (bar 1e-6), {same} of {OPS_STUDIES} reports identical")
+    if gap > 1e-6 or same != OPS_STUDIES:
+        fail("the batch CLI's fast lines differ from the engine's on the same chunks")
+    del fast
+    return total
+
+
+def ops_interchange(root: Path, bundle_path: Path, device, counters) -> dict:
+    """(c): model_bundle.pt and the registry directory, served bit-equal.
+    -> launches."""
+    import numpy as np
+
+    from mmdx_tpu_torch.checkpoints.bundle import (bundle_from_torch_registry_dir,
+                                                   load_bundle)
+    from mmdx_tpu_torch.checkpoints.torch_export import (bundle_to_torch,
+                                                         bundle_to_torch_registry_dir)
+    from mmdx_tpu_torch.pipelines.inference_pipeline import get_model_bundle
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    mb = load_bundle(bundle_path)
+    images = [p.read_bytes() for p in sorted((root / "studies").iterdir())[:4]]
+    t0 = time.perf_counter()
+    pt = bundle_to_torch(mb, root / "export" / "model_bundle.pt")
+    regdir = bundle_to_torch_registry_dir(mb, root / "export" / "registry")
+    log(f"  exported model_bundle.pt ({pt.stat().st_size / 2 ** 20:.0f} MiB) and the "
+        f"registry directory in {time.perf_counter() - t0:.1f} s")
+    served = {"mmdx": mb.to_torch(), "model_bundle.pt": get_model_bundle(pt),
+              "registry dir": bundle_from_torch_registry_dir(regdir).to_torch()}
+    probs, greedy = {}, {}
+    reset_counts(counters)
+    for name, b in served.items():
+        eng = InferenceEngine(b, mode="fast", device=device)
+        probs[name], z_img, z_txt = eng.classify_batch(images, TEXTS)
+        if name != "model_bundle.pt":
+            greedy[name] = eng.generate_report_ids(z_img, z_txt, greedy=True)
+        del eng
+    add(read_counts(counters))
+    for name in ("model_bundle.pt", "registry dir"):
+        gap = float(np.abs(probs[name] - probs["mmdx"]).max())
+        log(f"  fast engine from the {name}: max |prob| gap to the .mmdx bundle's {gap}")
+        if gap != 0.0:
+            fail(f"the {name} route does not serve the .mmdx bundle's probabilities")
+    if not np.array_equal(greedy["registry dir"], greedy["mmdx"]):
+        fail("the registry directory's greedy token ids differ from the .mmdx bundle's")
+    log("  registry directory: the same greedy token ids on the 4 images")
+    return total
+
+
+def phase_operations(device, counters, card) -> dict:
+    """Phase 6: the operations path at full width. -> launch counts."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    total = {}
+    t0 = time.perf_counter()
+    log("  (a) the daily jobs through scheduler.commands")
+    bundle_path = ops_daily_jobs(root, counters)
+    log("  (b) batch inference through pipelines.batch_inference.main")
+    runs = [ops_batch_inference(root, bundle_path, device, counters, card)]
+    log("  (c) the reference interchange")
+    runs.append(ops_interchange(root, bundle_path, device, counters))
+    for run in runs:
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    log(f"  phase 6 wall: {time.perf_counter() - t0:.1f} s")
+    tmp.cleanup()
+    return total
+
+
 def main() -> int:
     if not (ROOT / "mmdx_tpu_torch" / "csrc").is_dir():
         fail("mmdx_tpu_torch/csrc not found next to chip_smoke.py")
@@ -2253,6 +2577,10 @@ def main() -> int:
     if sys.argv[1:] == ["--train"]:
         phase_train_publish(device, launch_counters())
         log("train-and-publish checks passed (phases 1 and 5 only)")
+        return 0
+    if sys.argv[1:] == ["--ops"]:
+        phase_operations(device, launch_counters(), card)
+        log("operations checks passed (phases 1 and 6 only)")
         return 0
     kernel_stats = phase_kernels(device)
     if sys.argv[1:] == ["--kernels"]:
@@ -2302,6 +2630,8 @@ def main() -> int:
         "bundle served")
     served = phase_train_publish(device, counters)
     runs += tuple(served.values())
+    log("operations: the daily jobs, batch inference and the reference interchange")
+    runs += (phase_operations(device, counters, card),)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

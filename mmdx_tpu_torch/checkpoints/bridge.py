@@ -1,7 +1,7 @@
 """Weight bridge: the JAX package's variable tree -> the port's modules.
 
-Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py`` and its use of
-``mmdx_tpu/checkpoints/torch_import.py``, without flax:
+Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py``, without
+flax:
 
 * ``variables_to_torch(variables, config)`` takes the JAX variable tree as
   numpy arrays (``{"params": {...}, "batch_stats": {...}}``,
@@ -9,10 +9,6 @@ Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py`` and its use of
   strictly. On the way it folds each BatchNorm into its conv in f32
   (``pallas_bottleneck.fold_bn``), turns HWIO kernels into OIHW, and merges
   BERT's q/k/v kernels into the [H, 3H] block the attention kernel takes.
-* ``load_reference_bundle_pt(path)`` reads the reference-format
-  ``model_bundle.pt`` through the port's copy of
-  ``checkpoints/torch_import.py`` and runs the same bridge — the port's
-  jax-free serving format.
 * ``qparams_from_jax(q)`` turns the JAX int8 tower's ``quantize_backbone``
   tree (numpy leaves) into the port's qparams.
 * ``random_state(config, seed)`` makes full-width random weights with numpy
@@ -21,7 +17,8 @@ Port of the loading side of ``mmdx_tpu/checkpoints/bundle.py`` and its use of
   (``bundle.py:211-233``).
 
 ``checkpoints/bundle.py`` reads and writes the ``.mmdx`` format into and from
-the same variable tree, and ``checkpoints/train_bridge.py`` moves the tree
+the same variable tree (and imports the reference-format ``model_bundle.pt``,
+``bundle_from_torch``), and ``checkpoints/train_bridge.py`` moves the tree
 into the trainable towers and back.
 """
 from __future__ import annotations
@@ -31,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mmdx_tpu_torch.config import DISEASES, DiagnosisConfig
+from mmdx_tpu_torch.config import DiagnosisConfig
 from mmdx_tpu_torch.models.diagnosis import DiagnosisModel
 from mmdx_tpu_torch.models.resnet import RESNET50_STAGES
 from mmdx_tpu_torch.models.resnet_int8 import gemm_weight, hwio_view
@@ -289,35 +286,6 @@ def bundle_from_variables(variables: dict, config: DiagnosisConfig, *,
         class_names=list(class_names or config.class_names),
         thresholds=list(thresholds or config.thresholds), version=version,
         metadata=dict(metadata or {}))
-
-
-def load_reference_bundle_pt(path, config: DiagnosisConfig | None = None) -> TorchBundle:
-    """The reference's single-file ``model_bundle.pt`` (cfg + three torch
-    state dicts) -> TorchBundle.
-
-    The reference ``cfg`` carries widths but no head counts or depths, so
-    ``DiagnosisConfig.from_reference_json`` gives the reference's own
-    architecture; a model of other widths passes its ``config``."""
-    from mmdx_tpu_torch.checkpoints import torch_import as ti
-
-    blob = ti.load_torch_state_dict(path)
-    missing = {"cfg", "fusion_state", "image_state", "text_state"} - set(blob)
-    if missing:
-        raise ValueError(f"Bundle missing keys: {missing}")
-    config = config or DiagnosisConfig.from_reference_json(blob["cfg"])
-    image = ti.import_image_encoder(blob["image_state"])
-    text = ti.import_text_encoder(blob["text_state"])
-    fusion = ti.import_fusion(blob["fusion_state"])
-    variables = {
-        "params": {"image_encoder": image["params"], "text_encoder": text["params"],
-                   "fusion": fusion["params"]},
-        "batch_stats": {"image_encoder": image["batch_stats"]},
-    }
-    art = blob["cfg"].get("artifacts") or {}
-    return bundle_from_variables(
-        variables, config, class_names=art.get("class_names", list(DISEASES)),
-        thresholds=art.get("thresholds"), version=int(blob.get("version", 1)),
-        metadata={"imported_from": "torch_model_bundle"})
 
 
 def qparams_from_jax(q: dict) -> dict:

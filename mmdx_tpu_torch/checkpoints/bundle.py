@@ -13,6 +13,15 @@ serving ``TorchBundle`` from it through ``bridge.bundle_from_variables``.
 ``load_bundle`` needs no model template: the tree is read as written.
 ``new_random_bundle`` draws its weights with numpy (``bridge.random_state``),
 not with flax's initializers, so its numbers are the port's own.
+
+``bundle_from_torch`` and ``bundle_from_torch_registry_dir`` import the
+reference's torch formats (``model_bundle.pt``, the registry directory;
+``bundle.py:236-318``) through the port's copy of ``torch_import``; they are
+the port's one importer of them. The reference ``cfg`` carries widths but no
+head counts or depths, so ``DiagnosisConfig.from_reference_json`` gives the
+reference's own architecture; a model of other widths sets the imported
+bundle's ``config`` before ``to_torch()``. ``checkpoints/torch_export.py``
+writes both.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from mmdx_tpu_torch.checkpoints import msgpack_tree
 from mmdx_tpu_torch.checkpoints.bridge import (TorchBundle, Tokenizers,
                                                bundle_from_variables, default_vocabs,
                                                random_state, small_config)
-from mmdx_tpu_torch.config import DiagnosisConfig
+from mmdx_tpu_torch.config import DISEASES, DiagnosisConfig
 
 MAGIC = b"MMDX0001"
 BUNDLE_VERSION = 1
@@ -152,3 +161,70 @@ def new_random_bundle(seed: int = 0, config: DiagnosisConfig | None = None,
         config=config, variables=random_state(config, seed), bert_vocab=bert,
         t5_vocab=t5, t5_scores=scores, class_names=list(config.class_names),
         thresholds=list(config.thresholds), version=1)
+
+
+def bundle_from_torch(path_or_blob, t5_num_layers: int | None = None) -> ModelBundle:
+    """Import the reference's torch ``model_bundle.pt`` ({cfg, fusion_state,
+    image_state, text_state, version}, reference training_pipeline.py:783-791).
+
+    Weights convert exactly; the tokenizers are the shipped vocabs (the hub
+    names the file records are not fetched)."""
+    from mmdx_tpu_torch.checkpoints import torch_import as ti
+
+    blob = ti.load_torch_state_dict(path_or_blob)
+    missing = {"cfg", "fusion_state", "image_state", "text_state"} - set(blob)
+    if missing:
+        raise ValueError(f"Bundle missing keys: {missing}")
+    image_vars = ti.import_image_encoder(blob["image_state"])
+    text_vars = ti.import_text_encoder(blob["text_state"])
+    fusion_vars = ti.import_fusion(blob["fusion_state"], num_layers=t5_num_layers)
+    bert, t5, scores = default_vocabs()
+    artifacts = blob["cfg"].get("artifacts") or {}
+    return ModelBundle(
+        config=DiagnosisConfig.from_reference_json(blob["cfg"]),
+        variables=assemble_variables(image_vars, text_vars, fusion_vars),
+        bert_vocab=bert, t5_vocab=t5, t5_scores=scores,
+        class_names=artifacts.get("class_names", list(DISEASES)),
+        thresholds=artifacts.get("thresholds", [0.5] * 13),
+        version=int(blob.get("version", 1)),
+        metadata={"imported_from": "torch_model_bundle"})
+
+
+def bundle_from_torch_registry_dir(path: str | Path, version: int | None = None,
+                                   t5_num_layers: int | None = None) -> ModelBundle:
+    """Import the reference's model-registry directory: {``fusion_model.pt``,
+    ``image_encoder.pt``, ``text_encoder.pt``, ``config.json``, optional
+    ``t5_assets/``} (reference training_pipeline.py:675-729). Both towers
+    are required. ``t5_assets/spiece.model``, where present, gives the T5
+    vocab and its unigram scores (``text/spm_reader.py``); otherwise the
+    shipped vocab is used."""
+    from mmdx_tpu_torch.checkpoints import torch_import as ti
+
+    path = Path(path)
+    cfg_dict = json.loads((path / "config.json").read_text(encoding="utf-8"))
+    config = DiagnosisConfig.from_reference_json(cfg_dict)
+    fusion_vars = ti.import_fusion(ti.load_torch_state_dict(path / "fusion_model.pt"),
+                                   num_layers=t5_num_layers)
+    img_p, txt_p = path / "image_encoder.pt", path / "text_encoder.pt"
+    if not img_p.exists() or not txt_p.exists():
+        raise ValueError(
+            "registry dir must contain image_encoder.pt and text_encoder.pt "
+            "(the serving path needs both towers)")
+    image_vars = ti.import_image_encoder(ti.load_torch_state_dict(img_p))
+    text_vars = ti.import_text_encoder(ti.load_torch_state_dict(txt_p))
+    bert, t5, scores = default_vocabs()
+    spiece = path / "t5_assets" / "spiece.model"
+    if spiece.exists():
+        from mmdx_tpu_torch.text.spm_reader import read_spiece_vocab
+
+        t5, scores = read_spiece_vocab(spiece)
+    artifacts = cfg_dict.get("artifacts") or {}
+    n_disease = (cfg_dict.get("fusion") or {}).get("n_disease") or 13
+    return ModelBundle(
+        config=config,
+        variables=assemble_variables(image_vars, text_vars, fusion_vars),
+        bert_vocab=bert, t5_vocab=t5, t5_scores=scores,
+        class_names=artifacts.get("class_names", list(DISEASES)),
+        thresholds=artifacts.get("thresholds", [0.5] * n_disease),
+        version=int(version or 1),
+        metadata={"imported_from": "torch_registry_dir", "dir": str(path)})

@@ -5,7 +5,9 @@ Port of ``mmdx_tpu/pipelines/inference_pipeline.py``
 (``load_model_from_registry``, ``default_bundle_path``, ``get_model_bundle``,
 ``get_engine``, ``inference``). ``get_model_bundle`` serves an ``.mmdx``
 bundle (``checkpoints/bundle.py``, either package's) or the reference's
-``model_bundle.pt``, told apart by the 8-byte magic.
+``model_bundle.pt`` (``bundle.bundle_from_torch``), told apart by the 8-byte
+magic; a reference registry directory is read by
+``bundle.bundle_from_torch_registry_dir`` alone, as in JAX.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import os
 import threading
 from pathlib import Path
 
-from mmdx_tpu_torch.checkpoints.bridge import TorchBundle, load_reference_bundle_pt
-from mmdx_tpu_torch.checkpoints.bundle import MAGIC, load_bundle
+from mmdx_tpu_torch.checkpoints.bridge import TorchBundle
+from mmdx_tpu_torch.checkpoints.bundle import MAGIC, bundle_from_torch, load_bundle
 from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
 DEFAULT_MODEL_NAME = "fusion_model_T5"  # the reference's registry name
@@ -59,7 +61,7 @@ def get_model_bundle(path: str | os.PathLike | None = None) -> TorchBundle:
         if magic == MAGIC:
             bundle = load_bundle(bundle_path).to_torch()
         else:
-            bundle = load_reference_bundle_pt(bundle_path)
+            bundle = bundle_from_torch(bundle_path).to_torch()
         if path is None:
             _BUNDLE = bundle
         return bundle

@@ -1,15 +1,16 @@
 """``.mmdx`` bundles and the registry between the JAX package and the port,
 on the CPU.
 
-* the port's msgpack codec (``checkpoints/msgpack_tree.py``) against flax's
-  serializer and msgpack itself: the same bytes for the same tree, chunked
-  arrays included, and the same tree back;
+* the port's codec (``checkpoints/msgpack_tree.py``, msgpack with flax's
+  ext-type hook) against flax's serializer: the same bytes for the same
+  tree, chunked arrays included, the same tree back, and truncated or
+  trailing bytes and malformed array payloads refused;
 * a bundle written by JAX's ``save_bundle`` reads into the same arrays and
   header; a bundle the port writes reads back through JAX's ``load_bundle``;
   the bytes are equal where the header is (all but ``saved_at``);
 * registries round-trip both ways, and the port serves an ``.mmdx`` bundle
   (``get_model_bundle``) with the probabilities of the bridge's model;
-* the codec imports neither flax nor msgpack.
+* the codec and the bundle modules import no flax (nor jax).
 
 Bundles are small-config random weights (``bridge.random_state``), not
 flax-initialised ones. Each test is held to 120 s by an alarm, and a
@@ -153,13 +154,34 @@ def test_codec_rejects_truncated_and_trailing_bytes():
         msgpack_tree.loads(blob + b"\x00")
 
 
+def test_codec_refuses_a_malformed_array_payload():
+    """An ndarray payload must be (shape, dtype, bytes) and end with its
+    bytes; the arrays read are read-only views of the payload."""
+    import msgpack
+
+    def ext(*payload, tail=b""):
+        return msgpack.packb({"w": msgpack.ExtType(1, msgpack.packb(payload) + tail)})
+
+    raw = np.arange(4, dtype=np.float32).tobytes()
+    back = msgpack_tree.loads(ext((4,), "float32", raw))["w"]
+    np.testing.assert_array_equal(back, np.arange(4, dtype=np.float32))
+    assert not back.flags.writeable
+    with pytest.raises(ValueError, match="shape, dtype, bytes"):
+        msgpack_tree.loads(ext((4,), "float32"))
+    for bad in (ext((4,), "float32", raw, tail=b"\x00"), ext((4,), "float32", "text")):
+        with pytest.raises(ValueError, match="end with its bytes"):
+            msgpack_tree.loads(bad)
+
+
 def test_codec_and_bundle_import_neither_flax_nor_msgpack():
+    """Named for its first form: the codec now runs on msgpack, and the
+    check is that no bundle module imports flax (nor jax)."""
     for name in ("msgpack_tree", "bundle", "registry", "train_state", "train_bridge"):
         tree = ast.parse((ROOT / "mmdx_tpu_torch" / "checkpoints" / f"{name}.py").read_text())
         mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         mods += [n.module for n in ast.walk(tree)
                  if isinstance(n, ast.ImportFrom) and n.module]
-        assert not [m for m in mods if m.split(".")[0] in ("flax", "msgpack", "jax")], name
+        assert not [m for m in mods if m.split(".")[0] in ("flax", "jax")], name
 
 
 # ---------------------------------------------------------------------------

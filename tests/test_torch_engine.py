@@ -88,11 +88,13 @@ def test_fast_mode_close_to_parity(bundles, port_parity):
 
 def test_reference_bundle_pt_loads_like_the_bridge(bundles, port_parity, tmp_path):
     from mmdx_tpu.checkpoints.torch_export import bundle_to_torch
-    from mmdx_tpu_torch.checkpoints.bridge import load_reference_bundle_pt
+    from mmdx_tpu_torch.checkpoints.bundle import bundle_from_torch
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
     path = bundle_to_torch(bundles[0], tmp_path / "model_bundle.pt")
-    loaded = load_reference_bundle_pt(path, config=bundles[0].config)  # strict load
+    imported = bundle_from_torch(path)
+    imported.config = bundles[0].config  # the reference cfg has no depths
+    loaded = imported.to_torch()  # strict load
     bridged = bundles[1].model.state_dict()
     for k, v in loaded.model.state_dict().items():
         if k in bridged:
