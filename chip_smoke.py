@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels  # phases 1-2 only (build + kernel checks)
     python3 chip_smoke.py --train    # phases 1 and 5 only (build + train and publish)
     python3 chip_smoke.py --ops      # phases 1 and 6 only (build + the operations path)
+    python3 chip_smoke.py --mesh     # phases 1 and 7 only (build + the multi-device path)
 
 Phases (any failure exits nonzero):
   1. card and build: the card's name and power limit, torch/CUDA/nvcc
@@ -107,7 +108,30 @@ Phases (any failure exits nonzero):
      get_model_bundle) and to the registry directory (read back through
      bundle_from_torch_registry_dir), each served by a fast engine with the
      .mmdx bundle's probabilities exactly on 4 studies, the registry
-     directory's also with the same greedy token ids.
+     directory's also with the same greedy token ids;
+  7. the multi-device path (mmdx_tpu_torch/parallel/) at full width: the
+     single-rank references first (fast classify at B=4 and B=32, parity
+     classify B=4 and a 16-token beam-4 generate, one joint train step), then
+     two ranks on the one card over gloo through parallel.mesh.launch, each
+     building the engines on a ("data", "model") mesh:
+     (a) tp=2, fast: K1 and K2 in their tensor-parallel form on each rank's
+     shard at B=4 and B=32 (L=96), held to their plain versions over the
+     group and to the unsharded plain blocks at phase 2's bars; then
+     classify_batch at B=4 and B=32 with K1 and K2 in that form once per
+     BERT layer on each rank (counted),
+     probabilities within MESH_FAST_TOL of the single-rank fast engine,
+     beam-4 generate with the same ids on both ranks and 150-180 tokens;
+     (b) dp=2, fast: B=4 split 2 + 2 within MESH_FAST_TOL, generate on 3
+     rows (padded to 4) gathered and un-padded to 3 on both ranks;
+     (c) tp=2, parity: classify B=4 within MESH_PARITY_TOL of single-rank
+     parity and the same 16-token ids;
+     (d) one joint train step at tp=2 (f32, TF32 off, dropout on): the loss
+     within MESH_TRAIN_RTOL of the single-rank step, 0 hand-kernel launches;
+     (e) the WSGI app under MMDX_SERVE_MESH=2: rank 0 binds 127.0.0.1 and
+     answers one /api/predict/ while rank 1 follows and stops;
+     then (f) a world of one rank on NCCL: one classify on its mesh and an
+     all_reduce over the group. Each part's wall per rank is printed; any
+     rank's failure fails the run.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a card the
@@ -115,6 +139,7 @@ script exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2565,6 +2590,363 @@ def phase_operations(device, counters, card) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+# the mesh's fast engines against the single-rank fast engine: the same bf16
+# kernels, with the row-parallel sums of K1 and K2 split over two ranks (f32
+# partials summed by an all_reduce, then the LayerNorm) or the batch split
+# 2 + 2 (other GEMM plans per M), through 12 layers. An H100 gave 0.0028
+# (tp=2, B=4), 0.0029 (tp=2, B=32) and 0.0024 (dp=2): about 3.5x margin.
+# The tp blocks themselves are held to their plain versions and to the
+# unsharded plain blocks at phase 2's bars (mesh_tp_kernels)
+MESH_FAST_TOL = 0.01
+# parity mode on the mesh against parity on one rank: f32 sums in another
+# order
+MESH_PARITY_TOL = 1e-4
+# the joint train step at tp = 2 against the single-rank step (f32, TF32
+# off, dropout on: the replicated activations draw the same masks)
+MESH_TRAIN_RTOL = 1e-5
+MESH_GEN = dict(max_new_tokens=16, min_new_tokens=8)
+MESH_TRAIN_BATCH = 4
+MESH_BATCHES = (4, 32)
+
+
+def mesh_inputs(n: int = 32):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    images = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8) for _ in range(n)]
+    return images, [TEXTS[i % len(TEXTS)] for i in range(n)]
+
+
+def full_width_bundle():
+    from mmdx_tpu_torch.checkpoints import bridge
+    from mmdx_tpu_torch.config import DiagnosisConfig
+
+    config = DiagnosisConfig()
+    variables = bridge.random_state(config, SEED)
+    return variables, bridge.bundle_from_variables(variables, config)
+
+
+def mesh_train_loss(variables, config, mesh, device) -> tuple[float, float]:
+    """One joint train step (f32, TF32 off) -> (loss, synced ms)."""
+    import torch
+
+    from mmdx_tpu_torch.parallel.train import (TrainState, make_joint_batch,
+                                               make_sharded_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = TrainState.create(variables, config, mesh, device=device)
+    batch = make_joint_batch(SEED, config, MESH_TRAIN_BATCH)
+    (state, loss), ms = synced(lambda: make_sharded_train_step(mesh)(state, batch, SEED))
+    del state
+    torch.cuda.empty_cache()
+    return loss, ms
+
+
+def mesh_predict_over_http(app) -> tuple[str, dict, float]:
+    """Rank 0 binds a localhost port and answers one /api/predict/."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from mmdx_tpu_torch.serve.wsgi import make_server
+
+    server = make_server("127.0.0.1", 0, app)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(SEED + 1).integers(
+        0, 256, (600, 480, 3), dtype=np.uint8)).save(buf, "PNG")
+    boundary = b"chipsmokeboundary"
+    body = b"\r\n".join([
+        b"--" + boundary, b'Content-Disposition: form-data; name="patient_details"', b"",
+        TEXTS[0].encode(), b"--" + boundary,
+        b'Content-Disposition: form-data; name="image"; filename="x.png"',
+        b"Content-Type: image/png", b"", buf.getvalue(), b"--" + boundary + b"--"])
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{server.server_address[1]}/api/predict/", data=body,
+        headers={"Content-Type": "multipart/form-data; boundary=" + boundary.decode()})
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, payload = str(resp.status), json.loads(resp.read())
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+    return status, payload, ms
+
+
+def mesh_tp_kernels(mesh, g) -> None:
+    """K1 and K2 in their tensor-parallel form on this rank's shard (6 of
+    BERT-base's 12 heads, 1536 of its 3072 intermediate columns) at the
+    main path's rows (B=4 and B=32 at L=96), held at phase 2's bars
+    (ATOL/RTOL and TEXT_BITS_SHARE) to their plain versions over the same
+    group and, at ATOL/RTOL, to the unsharded plain blocks. ``g`` draws the
+    same whole weights on every rank."""
+    import torch
+
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn
+    from mmdx_tpu_torch.parallel.sharding import model_shard
+
+    shard = model_shard(mesh)
+    device, bf = torch.device("cuda", 0), torch.bfloat16
+    h, heads, f, l = 768, 12, 3072, 96
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device=device, dtype=bf)
+
+    wqkv, bqkv = randn(h, 3 * h, scale=h ** -0.5), randn(3 * h, scale=0.02)
+    wo, bo = randn(h, h, scale=h ** -0.5), randn(h, scale=0.02)
+    lns, lnb = 1.0 + randn(h, scale=0.1), randn(h, scale=0.1)
+    wi, bi = randn(h, f, scale=h ** -0.5), randn(f, scale=0.02)
+    wf, bf_ = randn(f, h, scale=f ** -0.5), randn(h, scale=0.02)
+    cols = torch.cat([shard.cols(h, i * h) for i in range(3)]).to(device)
+    rows, fcols = shard.cols(h).to(device), shard.cols(f).to(device)
+    attn_mine = (wqkv[:, cols].contiguous(), bqkv[cols].contiguous(),
+                 wo[rows].contiguous())
+    ffn_mine = (wi[:, fcols].contiguous(), bi[fcols].contiguous(), wf[fcols].contiguous())
+    for b in MESH_BATCHES:
+        m = b * l
+        x = randn(m, h)
+        lens = torch.randint(8, l + 1, (b,), generator=g)
+        kmask = torch.where(torch.arange(l)[None, :] < lens[:, None], 0.0, -1e9)
+        kmask = kmask.reshape(m).to(device=device, dtype=torch.float32)
+        kw = dict(seq_len=l, num_heads=heads // shard.size, eps=1e-12)
+        args = (x, kmask, attn_mine[0], attn_mine[1], attn_mine[2], bo, lns, lnb)
+        got = bert_attn.fused_attention_block(*args, **kw, group=shard.group)
+        label = f"rank {shard.rank} K1 tp=2 M={m} (B={b})"
+        ref = bert_attn.fused_attention_block_plain(*args, **kw, group=shard.group)
+        compare(f"{label} vs its plain version", got, ref)
+        compare_bits(f"{label} vs its plain version", got, ref, TEXT_BITS_SHARE,
+                     TEXT_BITS_ULP)
+        compare(f"{label} vs the unsharded plain block", got,
+                bert_attn.fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, lns, lnb,
+                                                      seq_len=l, num_heads=heads))
+        args = (x, ffn_mine[0], ffn_mine[1], ffn_mine[2], bf_, lns, lnb)
+        got = fused_ffn.fused_ffn_ln(*args, eps=1e-12, group=shard.group)
+        label = f"rank {shard.rank} K2 tp=2 M={m} (B={b})"
+        ref = fused_ffn.fused_ffn_ln_plain(*args, eps=1e-12, group=shard.group)
+        compare(f"{label} vs its plain version", got, ref)
+        compare_bits(f"{label} vs its plain version", got, ref, TEXT_BITS_SHARE,
+                     TEXT_BITS_ULP)
+        compare(f"{label} vs the unsharded plain block", got,
+                fused_ffn.fused_ffn_ln_plain(x, wi, bi, wf, bf_, lns, lnb, eps=1e-12))
+
+
+def mesh_world() -> dict:
+    """Phase 7's two ranks (one card, gloo): every part on this rank ->
+    its outputs, launch counts and walls."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mmdx_tpu_torch.ops import bert_attn, fused_ffn
+    from mmdx_tpu_torch.parallel.mesh import make_mesh
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    rank, device = dist.get_rank(), torch.device("cuda", 0)
+    variables, bundle = full_width_bundle()
+    config = bundle.config
+    images, texts = mesh_inputs()
+    counters = launch_counters()
+    for name, fn in (("bert_attn_tp", bert_attn.fused_attention_block),
+                     ("fused_ffn_tp", fused_ffn.fused_ffn_ln)):
+        counters[name] = (lambda fn=fn: fn.tp_launches,
+                          lambda fn=fn: setattr(fn, "tp_launches", 0))
+    out = {"walls": {}, "launches": {}}
+
+    def run(part, fn):
+        reset_counts(counters)
+        value, ms = synced(fn)
+        out["walls"][part] = ms
+        out["launches"][part] = read_counts(counters)
+        return value
+
+    # (a) tp = 2, fast: the tp blocks against their plain versions first
+    tp_mesh = make_mesh(n_model=2)
+    mesh_tp_kernels(tp_mesh, torch.Generator().manual_seed(SEED + 15))
+    fast = InferenceEngine(bundle, mode="fast", mesh=tp_mesh)
+    out["a_whole"] = fast.whole_under_tp
+    for b in MESH_BATCHES:
+        probs, zi, zt = run(f"a classify B={b}",
+                            lambda: fast.classify_batch(images[:b], texts[:b]))
+        out[f"a probs {b}"] = probs
+        if b == 4:
+            z4 = (zi, zt)
+    out["a ids"] = run("a generate B=4", lambda: fast.generate_report_ids(*z4))
+    del fast
+    # (b) dp = 2, fast: B=4 as 2 + 2; generate on 3 rows (padded to 4)
+    dp_mesh = make_mesh(n_model=1)
+    fast_dp = InferenceEngine(bundle, mode="fast", mesh=dp_mesh)
+    probs, zi, zt = run("b classify B=4", lambda: fast_dp.classify_batch(images[:4], texts[:4]))
+    out["b probs"] = probs
+    out["b ids"] = run("b generate B=3", lambda: fast_dp.generate_report_ids(zi[:3], zt[:3]))
+    del fast_dp
+    # (c) tp = 2, parity
+    parity = InferenceEngine(bundle, mode="parity", mesh=tp_mesh)
+    gen = dataclasses.replace(config.generation, **MESH_GEN)
+    probs, zi, zt = run("c classify B=4", lambda: parity.classify_batch(images[:4], texts[:4]))
+    out["c probs"] = probs
+    out["c ids"] = run("c generate B=4", lambda: parity.generate_report_ids(zi, zt, gen=gen))
+    del parity
+    torch.cuda.empty_cache()
+    # (d) one joint train step at tp = 2
+    reset_counts(counters)
+    out["d loss"], out["walls"]["d train step"] = mesh_train_loss(variables, config,
+                                                                 tp_mesh, device)
+    out["launches"]["d train step"] = read_counts(counters)
+    # (e) the WSGI app under MMDX_SERVE_MESH=2: rank 0 serves, rank 1 follows
+    from mmdx_tpu_torch.serve import mesh_serving
+    from mmdx_tpu_torch.serve.wsgi import make_app
+
+    os.environ["MMDX_SERVE_MESH"] = "2"
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    if rank == 0:
+        app = make_app(bundle=bundle, engine_mode="fast")
+        out["e"] = mesh_predict_over_http(app)
+        app.close()
+    else:
+        out["e"] = ("followed", mesh_serving.follower(
+            bundle, "fast", mesh_serving.serve_mesh_from_env()))
+    torch.cuda.synchronize()
+    out["walls"]["e serve"] = (time.perf_counter() - t0) * 1e3
+    out["launches"]["e serve"] = read_counts(counters)
+    del os.environ["MMDX_SERVE_MESH"]
+    return out
+
+
+def nccl_world() -> dict:
+    """Phase 7 (f): a world of one rank on NCCL, one classify on its mesh
+    and one all_reduce of the probabilities over the group."""
+    import torch
+    import torch.distributed as dist
+
+    from mmdx_tpu_torch.parallel.mesh import make_mesh
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    _, bundle = full_width_bundle()
+    images, texts = mesh_inputs(4)
+    mesh = make_mesh(n_model=1)
+    engine = InferenceEngine(bundle, mode="fast", mesh=mesh)
+    (probs, _, _), ms = synced(lambda: engine.classify_batch(images, texts))
+    t = torch.from_numpy(probs).to(engine.device)
+    dist.all_reduce(t, group=mesh.get_group("data"))
+    return {"backend": dist.get_backend(), "probs": probs,
+            "reduced": t.cpu().numpy(), "ms": ms}
+
+
+def phase_mesh(device) -> dict:
+    """Phase 7: the multi-device path on the one card. -> the ranks' kernel
+    launch counts, summed."""
+    import numpy as np
+    import torch
+
+    from mmdx_tpu_torch.parallel.mesh import launch
+    from mmdx_tpu_torch.runtime.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    variables, bundle = full_width_bundle()
+    config = bundle.config
+    images, texts = mesh_inputs()
+    gen = dataclasses.replace(config.generation, **MESH_GEN)
+    fast = InferenceEngine(bundle, mode="fast", device=device)
+    ref = {b: fast.classify_batch(images[:b], texts[:b])[0] for b in MESH_BATCHES}
+    del fast
+    parity = InferenceEngine(bundle, mode="parity", device=device)
+    pprobs, pzi, pzt = parity.classify_batch(images[:4], texts[:4])
+    pids = parity.generate_report_ids(pzi, pzt, gen=gen)
+    del parity, pzi, pzt
+    torch.cuda.empty_cache()
+    ref_loss, ref_ms = mesh_train_loss(variables, config, None, device)
+    del variables, bundle
+    log(f"  single-rank references (fast B=4/32, parity B=4 + {gen.max_new_tokens} "
+        f"tokens, one joint train step {ref_ms:.1f} ms, loss {ref_loss:.6f}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    try:
+        ranks = launch(mesh_world, 2, timeout=600)
+    except RuntimeError as err:
+        fail(f"phase 7, two ranks on one card: {err}")
+    log(f"  two ranks (gloo, one card): {time.perf_counter() - t1:.1f} s")
+    layers = config.text.num_layers
+    for r, out in enumerate(ranks):
+        log(f"  rank {r} walls (ms): " + ", ".join(f"{k} {v:.1f}"
+                                                for k, v in out["walls"].items()))
+        for b in MESH_BATCHES:
+            n = out["launches"][f"a classify B={b}"]
+            if (n["bert_attn_tp"], n["fused_ffn_tp"], n["bert_attn"], n["fused_ffn"]) != \
+                    (layers,) * 4:
+                fail(f"(a) rank {r} B={b}: expected K1 and K2 in their tp form once per "
+                     f"layer ({layers}), got {n}")
+            gap = float(np.abs(out[f"a probs {b}"] - ref[b]).max())
+            if gap > MESH_FAST_TOL:
+                fail(f"(a) rank {r} B={b}: probabilities {gap:.4f} off the single-rank "
+                     f"fast engine (limit {MESH_FAST_TOL})")
+            log(f"  (a) tp=2 fast rank {r} B={b}: K1, K2 tp form {layers} launches each, "
+                f"max |p - single rank| = {gap:.5f}")
+        lens = check_reports(f"(a) rank {r}", out["a ids"], config.generation)
+        gap = float(np.abs(out["b probs"] - ref[4][:4]).max())
+        if gap > MESH_FAST_TOL or out["b ids"].shape != (3, 1 + config.generation.max_new_tokens):
+            fail(f"(b) rank {r}: probabilities {gap:.4f} off single rank or ids "
+                 f"{out['b ids'].shape} (3 rows expected)")
+        check_reports(f"(b) rank {r}", out["b ids"], config.generation)
+        gap = float(np.abs(out["c probs"] - pprobs).max())
+        if gap > MESH_PARITY_TOL or not np.array_equal(out["c ids"], pids):
+            fail(f"(c) rank {r}: parity probabilities {gap:.2e} off single rank (limit "
+                 f"{MESH_PARITY_TOL}) or ids differ at {first_differences(out['c ids'], pids)}")
+        n = out["launches"]["d train step"]
+        if any(n.values()) or not np.isclose(out["d loss"], ref_loss, rtol=MESH_TRAIN_RTOL,
+                                             atol=0.0):
+            fail(f"(d) rank {r}: train loss {out['d loss']} against single rank {ref_loss} "
+                 f"(rtol {MESH_TRAIN_RTOL}); hand-kernel launches {n}")
+        log(f"  rank {r}: (a) beam-4 report tokens {lens}; (b) dp=2 max |p - single "
+            f"rank| = {float(np.abs(out['b probs'] - ref[4]).max()):.5f}, ids "
+            f"{out['b ids'].shape}; (c) parity max |p - single rank| = "
+            f"{float(np.abs(out['c probs'] - pprobs).max()):.2e}, ids equal; (d) loss "
+            f"{out['d loss']:.6f} (single rank {ref_loss:.6f}), 0 kernel launches")
+    for key in ("a ids", "b ids"):
+        if not np.array_equal(ranks[0][key], ranks[1][key]):
+            fail(f"{key}: the ranks returned different ids")
+    log(f"  whole on every model rank (fast): {ranks[0]['a_whole']}")
+    status, payload, ms = ranks[0]["e"]
+    from mmdx_tpu_torch.config import DISEASES
+
+    if not status.startswith("200") or [d["name"] for d in payload["diseases"]] != DISEASES \
+            or not isinstance(payload.get("report_text"), str) or ranks[1]["e"][0] != "followed":
+        fail(f"(e) MMDX_SERVE_MESH=2: {status} {str(payload)[:300]}, rank 1 {ranks[1]['e']}")
+    log(f"  (e) MMDX_SERVE_MESH=2: /api/predict/ on 127.0.0.1 through rank 0: 200 in "
+        f"{ms:.1f} ms, report {len(payload['report_text'])} chars; rank 1 followed "
+        f"{ranks[1]['e'][1]} engine call(s) and stopped")
+    t2 = time.perf_counter()
+    try:
+        (single,) = launch(nccl_world, 1, timeout=300)
+    except RuntimeError as err:
+        fail(f"phase 7 (f), one rank on NCCL: {err}")
+    gap = float(np.abs(single["probs"] - ref[4]).max())
+    if single["backend"] != "nccl" or gap > MESH_FAST_TOL or \
+            not np.array_equal(single["reduced"], single["probs"]):
+        fail(f"(f) world-1 mesh: backend {single['backend']}, probabilities {gap:.4f} off")
+    log(f"  (f) world-1 NCCL mesh: classify B=4 {single['ms']:.1f} ms, max |p - single "
+        f"rank| = {gap:.2e}, all_reduce over the group exact ({time.perf_counter() - t2:.1f} s)")
+    log(f"  phase 7 wall: {time.perf_counter() - t0:.1f} s")
+    total = {}
+    for out in ranks:
+        for part in out["launches"].values():
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     if not (ROOT / "mmdx_tpu_torch" / "csrc").is_dir():
         fail("mmdx_tpu_torch/csrc not found next to chip_smoke.py")
@@ -2581,6 +2963,10 @@ def main() -> int:
     if sys.argv[1:] == ["--ops"]:
         phase_operations(device, launch_counters(), card)
         log("operations checks passed (phases 1 and 6 only)")
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        phase_mesh(device)
+        log("multi-device checks passed (phases 1 and 7 only)")
         return 0
     kernel_stats = phase_kernels(device)
     if sys.argv[1:] == ["--kernels"]:
@@ -2632,6 +3018,9 @@ def main() -> int:
     runs += tuple(served.values())
     log("operations: the daily jobs, batch inference and the reference interchange")
     runs += (phase_operations(device, counters, card),)
+    log("multi-device: two ranks on the card (tp=2 and dp=2 engines, the joint train "
+        "step, mesh serving), and a world-1 NCCL mesh")
+    runs += (phase_mesh(device),)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],

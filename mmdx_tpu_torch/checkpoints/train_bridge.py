@@ -95,13 +95,13 @@ def text_tower(text_vars: dict, config: DiagnosisConfig) -> TextEncoder:
 
 def text_vars_of(tower: TextEncoder) -> dict:
     flat = {}
-    h = tower.cfg.hidden_size
     for k, v in tower.state_dict().items():
         a = _to_numpy(v)
         k = re.sub(r"^bert\.layers\.(\d+)\.", r"bert.layer\1.", k)
         if k.startswith("bert.") and k.endswith("_embeddings"):
             k += ".embedding"
         if ".attn_qkv." in k:  # kernel [H, 3H] or bias [3H]: q | k | v columns
+            h = a.shape[-1] // 3  # H, or the rank's share under tensor parallelism
             for i, name in enumerate(("attn_q", "attn_k", "attn_v")):
                 flat[k.replace("attn_qkv", name)] = np.ascontiguousarray(
                     a[..., i * h:(i + 1) * h])
@@ -128,3 +128,36 @@ def fusion_vars_of(model: FusionModel) -> dict:
             k += ".embedding"
         flat[k] = _to_numpy(v)
     return {"params": unflatten(flat)}
+
+
+# ---------------------------------------------------------------------------
+# the whole model, for the joint train step
+# ---------------------------------------------------------------------------
+def joint_model(variables: dict, config: DiagnosisConfig):
+    """The whole JAX variable tree -> ``models/diagnosis.JointTrainModel``
+    (f32, CPU, every parameter trainable)."""
+    from mmdx_tpu_torch.models.diagnosis import JointTrainModel
+
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    n_enc = sum(1 for k in p["fusion"]["report_model"] if k.startswith("encoder_layer"))
+    model = JointTrainModel(config, t5_encoder_layers=n_enc,
+                            bert_pooler="pooler" in p["text_encoder"]["bert"])
+    sd = {}
+    image = flatten(p["image_encoder"])
+    image.update(flatten(stats["image_encoder"]))
+    for prefix, part in (("image_encoder", image),
+                         ("text_encoder", _text_state(p["text_encoder"], config)),
+                         ("fusion", fusion_state(p["fusion"], config))):
+        sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return _load(model, sd)
+
+
+def joint_vars_of(model) -> dict:
+    """``JointTrainModel`` -> the JAX variable tree (numpy f32): the
+    rank's slices under tensor parallelism, as ``sharding.port_shardings``
+    lays them out."""
+    image = image_vars_of(model.image_encoder)
+    return {"params": {"image_encoder": image["params"],
+                       "text_encoder": text_vars_of(model.text_encoder)["params"],
+                       "fusion": fusion_vars_of(model.fusion)["params"]},
+            "batch_stats": {"image_encoder": image["batch_stats"]}}

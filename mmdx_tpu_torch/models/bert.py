@@ -28,6 +28,15 @@ per-column weight scales, tanh-GELU) from weights quantized once by
 145-146``: the same numbers). Beyond the fused block's length the attention
 runs the bf16 projections and the FFN stays W8A8, as in the JAX route.
 
+Under tensor parallelism (``parallel.sharding.shard_model_``) a layer
+holds its heads' columns of q, k and v and the same rows of ``attn_out``,
+its share of ``ffn_in``'s columns and ``ffn_out``'s rows. The fused block
+and FFN then take the "model" group and run their tensor-parallel form
+(the rank's columns, its rows' f32 partials summed over the group, the
+LayerNorm over the sum plus bias plus residual); the flash, einsum and
+training routes run their ``Dense`` products, whose row-parallel ones sum
+over "model" before the bias. The W8A8 blocks stay whole.
+
 Training runs none of these routes. ``TextEncoder.backbone_pooled``,
 ``heads`` and ``encode_train`` run every layer through ``forward_train``:
 the JAX package's unfused XLA layer (``bert.py:104-160``, the route its
@@ -68,12 +77,19 @@ class BertLayer(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
-        self.attn_qkv = Dense(h, 3 * h)  # merged q|k|v columns
-        self.attn_out = Dense(h, h)
+        d = h // cfg.num_heads
+        self.attn_qkv = Dense(h, 3 * h, blocks=3, unit=d)  # merged q|k|v columns
+        self.attn_out = Dense(h, h, unit=d)
         self.attn_ln = LayerNorm(h, cfg.layer_norm_eps)
         self.ffn_in = Dense(h, cfg.intermediate_size)
         self.ffn_out = Dense(cfg.intermediate_size, h)
         self.ffn_ln = LayerNorm(h, cfg.layer_norm_eps)
+
+    @property
+    def heads(self) -> int:
+        """The heads this rank holds: all of them, or its share once
+        ``parallel.sharding.shard_model_`` has split the attention."""
+        return self.attn_out.kernel.shape[0] // self.attn_out.unit
 
     def quantize_int8_(self) -> None:
         """Per-column int8 forms of the four projection weights (W8A8), laid
@@ -95,9 +111,10 @@ class BertLayer(nn.Module):
         views of the merged q|k|v rows, the out-projection (through ``drop``
         when training), residual and LayerNorm, in the model dtype as flax's
         Dense and LayerNorm."""
-        h, heads = self.cfg.hidden_size, self.cfg.num_heads
+        heads = self.heads
         b = x.shape[0] // seq_len
         qkv = self.attn_qkv(x)
+        h = qkv.shape[1] // 3  # the rank's q (k, v) columns
 
         def split(t):  # [B*L, H] -> [B, heads, L, d], a view
             return t.reshape(b, seq_len, heads, h // heads).permute(0, 2, 1, 3)
@@ -118,8 +135,10 @@ class BertLayer(nn.Module):
 
     def forward(self, x, kmask, seq_len: int, kernels: bool, int8: bool = False):
         """x [B*L, H]; kmask [B*L] f32 additive -> [B*L, H]."""
-        eps, heads = self.cfg.layer_norm_eps, self.cfg.num_heads
+        eps, heads = self.cfg.layer_norm_eps, self.heads
         route = self.attention_route(seq_len)
+        if (self.attn_out.tp or self.ffn_out.tp) and int8:
+            raise ValueError("the W8A8 text blocks stay whole under tensor parallelism")
         if route == "block" and int8:
             q = self.int8
             x = bert_attn.fused_attention_block_int8(
@@ -131,11 +150,12 @@ class BertLayer(nn.Module):
                     else bert_attn.fused_attention_block_plain)
             x = attn(x, kmask, self.attn_qkv.kernel, self.attn_qkv.bias,
                      self.attn_out.kernel, self.attn_out.bias, self.attn_ln.scale,
-                     self.attn_ln.bias, seq_len=seq_len, num_heads=heads, eps=eps)
+                     self.attn_ln.bias, seq_len=seq_len, num_heads=heads, eps=eps,
+                     group=self.attn_out.group)
         elif route == "flash":
             flash = (flash_attention.flash_attention if kernels
                      else flash_attention.flash_attention_plain)
-            scale = 1.0 / float(self.cfg.hidden_size // heads) ** 0.5
+            scale = 1.0 / float(self.cfg.hidden_size // self.cfg.num_heads) ** 0.5
             x = self._attention_unfused(
                 x, kmask, seq_len, lambda q, k, v, bias: flash(q, k, v, bias, scale))
         else:
@@ -147,7 +167,8 @@ class BertLayer(nn.Module):
                 self.ffn_ln.scale, self.ffn_ln.bias, eps=eps)
         ffn = fused_ffn.fused_ffn_ln if kernels else fused_ffn.fused_ffn_ln_plain
         return ffn(x, self.ffn_in.kernel, self.ffn_in.bias, self.ffn_out.kernel,
-                   self.ffn_out.bias, self.ffn_ln.scale, self.ffn_ln.bias, eps=eps)
+                   self.ffn_out.bias, self.ffn_ln.scale, self.ffn_ln.bias, eps=eps,
+                   group=self.ffn_out.group)
 
 
 class BertEncoder(nn.Module):

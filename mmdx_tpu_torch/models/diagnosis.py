@@ -7,6 +7,14 @@ embeddings, ``prepare_generation`` /
 the decode step through the hand-written kernels (fast and turbo mode);
 ``kernels=False`` runs their plain versions (parity mode). ``int8=True``
 runs the text tower's blocks in their W8A8 form (turbo mode).
+
+``JointTrainModel`` is the training forward of the JAX
+``MultiModalDiagnosisModel.__call__`` (``:97-114``, ``train=True`` with
+``report_labels``): the trainable ResNet-50 with train-mode BatchNorm
+(``models/resnet_train.py``), BERT's training route and heads, and the
+fusion head with the teacher-forced report, in plain differentiable ops
+(no hand-written kernel has a backward), as one module for the joint dp x
+tp train step (``parallel/train.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from mmdx_tpu_torch.models.bert import TextEncoder
 from mmdx_tpu_torch.models.fusion import FusionModel
 from mmdx_tpu_torch.models.layers import cast_
 from mmdx_tpu_torch.models.resnet import ImageEncoder
+from mmdx_tpu_torch.models import resnet_train
 
 
 class DiagnosisModel(nn.Module):
@@ -62,3 +71,35 @@ class DiagnosisModel(nn.Module):
     def cast_(self, dtype: torch.dtype) -> "DiagnosisModel":
         """``layers.cast_``: the weights to the compute dtype, in place."""
         return cast_(self, dtype)
+
+
+class JointTrainModel(nn.Module):
+    """Image tower + text tower + fusion (+ teacher-forced report), trainable
+    end to end. Its weights move from and to the JAX variable tree through
+    ``checkpoints/train_bridge.py`` (``joint_model``, ``joint_vars_of``)."""
+
+    def __init__(self, config: DiagnosisConfig, t5_encoder_layers: int = 0,
+                 bert_pooler: bool = True):
+        super().__init__()
+        self.config = config
+        self.image_encoder = resnet_train.ImageEncoder(config.image)
+        self.text_encoder = TextEncoder(config.text, pooler=bert_pooler)
+        self.fusion = FusionModel(config.fusion, config.report, t5_encoder_layers)
+
+    def forward(self, images, input_ids, attention_mask, token_type_ids=None,
+                report_labels=None, drop_text=None, drop_fusion=None) -> dict:
+        """Preprocessed NHWC images and token ids -> {"disease_logits",
+        "z_fuse", "z_img", "z_txt", "image_logits", "text_logits"[,
+        "report_logits" f32 [B, L, V]]}; ``drop_text`` and ``drop_fusion``
+        are the towers' dropout (None: off)."""
+        img = self.image_encoder(images, train=True)
+        txt = self.text_encoder.encode_train(input_ids, attention_mask, token_type_ids,
+                                             drop_text)
+        out = self.fusion(img["embeddings"], txt["embeddings"],
+                          report_labels=report_labels, drop=drop_fusion)
+        out["z_img"], out["z_txt"] = img["embeddings"], txt["embeddings"]
+        if "logits" in img:
+            out["image_logits"] = img["logits"]
+        if "logits" in txt:
+            out["text_logits"] = txt["logits"]
+        return out

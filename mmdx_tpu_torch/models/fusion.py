@@ -30,17 +30,28 @@ class FusionModel(nn.Module):
         self.cond_proj = Dense(cfg.d_fuse_hidden, report_cfg.d_model * cfg.n_cond_tokens)
         self.report_model = T5(report_cfg, t5_encoder_layers)
 
+    @staticmethod
+    def _whole(dense, h):
+        """``h``, the GELU of a column-parallel ``dense``'s output, put
+        together on every model rank; unchanged when ``dense`` is whole."""
+        if dense.tp is None:
+            return h
+        from mmdx_tpu_torch.parallel.sharding import gather_columns
+
+        return gather_columns(h, dense.tp[1])
+
     def fuse(self, z_img, z_txt, drop=None):
         """[B, d_img], [B, d_txt] -> z_fuse [B, d_fuse_hidden]; ``drop``
         (training) applies dropout before the LayerNorm."""
-        h = F.gelu(self.fuse_dense(torch.cat([z_img, z_txt], dim=-1)))
+        h = self._whole(self.fuse_dense,
+                        F.gelu(self.fuse_dense(torch.cat([z_img, z_txt], dim=-1))))
         if drop is not None:
             h = drop(h)
         return self.fuse_ln(h)
 
     def make_cond_tokens(self, z_fuse):
         """-> synthetic encoder outputs [B, K, d_model]."""
-        cond = F.gelu(self.cond_proj(z_fuse))
+        cond = self._whole(self.cond_proj, F.gelu(self.cond_proj(z_fuse)))
         return cond.reshape(z_fuse.shape[0], self.cfg.n_cond_tokens,
                             self.report_cfg.d_model)
 

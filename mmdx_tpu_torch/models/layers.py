@@ -44,16 +44,66 @@ def cast_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 class Dense(nn.Module):
-    """y = x @ kernel + bias (flax nn.Dense)."""
+    """y = x @ kernel + bias (flax nn.Dense).
 
-    def __init__(self, d_in: int, d_out: int, bias: bool = True):
+    ``shard_`` makes it one rank's part of a tensor-parallel product
+    (``parallel.sharding.shard_model_`` calls it by the rules): "col" keeps
+    the rank's share of each of the kernel's ``blocks`` column blocks (a
+    merged q|k|v kernel has 3) and of the bias, and its input passes
+    ``copy_to_model`` (whose backward sums the input's gradient over
+    "model"); "row" keeps the rank's share of the rows, sums the partial
+    products over "model" and then adds the whole bias once. A share must
+    hold whole ``unit``s (an attention projection's heads)."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, *, blocks: int = 1,
+                 unit: int = 1):
         super().__init__()
         self.kernel = param(d_in, d_out)
         self.bias = param(d_out) if bias else None
+        self.blocks, self.unit = blocks, unit
+        self.tp = None  # (kind, ModelShard) once sharded
+
+    def shard_(self, shard, kind: str) -> "Dense":
+        col = kind == "col"
+        if kind not in ("col", "row"):
+            raise ValueError(f"unknown shard kind {kind!r}")
+        n = self.kernel.shape[1] // self.blocks if col else self.kernel.shape[0]
+        if n % (shard.size * self.unit):
+            raise ValueError(f"{n} {'columns' if col else 'rows'} in units of {self.unit} "
+                             f"(heads) cannot be split over {shard.size} model ranks")
+        index = torch.cat([shard.cols(n, i * n) for i in range(self.blocks if col else 1)])
+        with torch.no_grad():
+            if col:
+                self.kernel = _like(self.kernel, self.kernel[:, index])
+                if self.bias is not None:
+                    self.bias = _like(self.bias, self.bias[index])
+            else:
+                self.kernel = _like(self.kernel, self.kernel[index])
+        self.tp = (kind, shard)
+        return self
+
+    @property
+    def group(self):
+        """The "model" group of a sharded product, else None."""
+        return None if self.tp is None else self.tp[1].group
 
     def forward(self, x):
-        y = x @ self.kernel
+        if self.tp is None:
+            y = x @ self.kernel
+            return y if self.bias is None else y + self.bias
+        from mmdx_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
+
+        kind, shard = self.tp
+        if kind == "col":
+            y = copy_to_model(x, shard) @ self.kernel
+        else:
+            y = reduce_from_model(x @ self.kernel, shard)
         return y if self.bias is None else y + self.bias
+
+
+def _like(p: nn.Parameter, value: torch.Tensor) -> nn.Parameter:
+    """A new parameter holding ``value`` (contiguous), trainable as ``p``."""
+    return nn.Parameter(value.contiguous().clone(), requires_grad=p.requires_grad)
 
 
 class Dropout:

@@ -62,6 +62,21 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.group = None  # the "data" group the batch statistics span
+
+    def _batch_stats(self, x32):
+        """The batch's mean and E[x^2] per channel: over this rank's rows,
+        or with ``group`` over every data rank's rows (sums and counts by
+        ``all_reduce``, differentiated through)."""
+        if self.group is None:
+            return x32.mean(dim=(0, 2, 3)), (x32 * x32).mean(dim=(0, 2, 3))
+        from mmdx_tpu_torch.parallel.sharding import sum_over
+
+        s = x32.sum(dim=(0, 2, 3))
+        sums = sum_over(torch.stack([s, (x32 * x32).sum(dim=(0, 2, 3)),
+                                     torch.full_like(s, x32.numel() // x32.shape[1])]),
+                        self.group)  # per channel: sum, sum of squares, count
+        return sums[0] / sums[2], sums[1] / sums[2]
 
     def forward(self, x, train: bool):
         """flax's arithmetic (``normalization._compute_stats`` with
@@ -69,11 +84,13 @@ class BatchNorm(nn.Module):
         for f64 inputs), the batch
         variance as E[x^2] - E[x]^2 clipped at 0, y = (x - mean) *
         (rsqrt(var + eps) * scale) + bias, in x's dtype. The batch
-        statistics are differentiated through, as in flax."""
+        statistics are differentiated through, as in flax; with ``group``
+        set (``ImageEncoder.sync_batch_stats_``) they span every data rank's
+        rows, so every rank keeps the same running statistics."""
         x32 = x.to(torch.promote_types(x.dtype, F32))
         if train:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, sq = self._batch_stats(x32)
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_(mean, alpha=1.0 - m)
@@ -151,6 +168,14 @@ class ImageEncoder(nn.Module):
         self.classifier = (Dense(config.d_img, config.n_disease)
                            if config.use_warmup_classifier else None)
         self.requires_grad_(True)
+
+    def sync_batch_stats_(self, group) -> "ImageEncoder":
+        """Train-mode BatchNorm statistics over every rank of ``group`` (the
+        "data" axis of a mesh), or over this rank's rows (None)."""
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.group = group
+        return self
 
     def backbone_features(self, images_nhwc, train: bool = False):
         """Preprocessed NHWC images [B, S, S, 3] -> pooled features [B, 2048]."""

@@ -129,18 +129,36 @@ class T5Attention(nn.Module):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
         self.cfg = cfg
-        self.q = Dense(cfg.d_model, inner, bias=False)
-        self.k = Dense(cfg.d_model, inner, bias=False)
-        self.v = Dense(cfg.d_model, inner, bias=False)
-        self.o = Dense(inner, cfg.d_model, bias=False)
+        self.q = Dense(cfg.d_model, inner, bias=False, unit=cfg.d_kv)
+        self.k = Dense(cfg.d_model, inner, bias=False, unit=cfg.d_kv)
+        self.v = Dense(cfg.d_model, inner, bias=False, unit=cfg.d_kv)
+        self.o = Dense(inner, cfg.d_model, bias=False, unit=cfg.d_kv)
+
+    @property
+    def heads(self) -> int:
+        """The heads this rank holds: all of them, or its share once
+        ``parallel.sharding.shard_model_`` has split the attention."""
+        return self.o.kernel.shape[0] // self.cfg.d_kv
+
+    @property
+    def head_slice(self) -> slice:
+        """This rank's rows of a whole-heads bias."""
+        first = self.o.tp[1].rank * self.heads if self.o.tp else 0
+        return slice(first, first + self.heads)
 
     def forward(self, hidden, kv_hidden, bias):
         """Whole-sequence attention (``T5Attention.__call__``): hidden [B, Lq,
         D], kv_hidden [B, Lk, D], bias [*, h, Lq, Lk] additive f32; f32
         scores (no scaling), f32 softmax, probabilities and context in the
-        model dtype."""
-        h, d = self.cfg.num_heads, self.cfg.d_kv
+        model dtype. Sharded, the rank's heads and their rows of ``bias``."""
+        h, d = self.heads, self.cfg.d_kv
         b, lq, _ = hidden.shape
+        if bias.shape[-3] != 1 and self.o.tp:
+            from mmdx_tpu_torch.parallel.sharding import copy_to_model
+
+            # the whole-heads bias is replicated: its gradient sums every
+            # rank's heads
+            bias = copy_to_model(bias, self.o.tp[1])[..., self.head_slice, :, :]
 
         def split(t):
             return t.reshape(b, t.shape[1], h, d).transpose(1, 2)
@@ -159,8 +177,9 @@ class T5Attention(nn.Module):
         {"kvs": [B, 2h, nb*Lc]} f32 scales (row pos*nb + j written here, in
         place); mask [B, nb, nb*Lc]; bias_k [h, nb*Lc] -> [N, D]."""
         b, nb, _ = mask.shape
-        h, d = self.cfg.num_heads, self.cfg.d_kv
+        h, d = self.heads, self.cfg.d_kv
         hd = h * d
+        bias_k = bias_k[self.head_slice]
         q = self.q(y).reshape(b, nb, hd)
         k_new = self.k(y).reshape(b, nb, hd)
         v_new = self.v(y).reshape(b, nb, hd)
@@ -221,12 +240,15 @@ class T5DecoderLayer(nn.Module):
         y = self.self_ln(hidden)
         hidden = hidden + self.self_attn.step_beam(y, cache, pos, mask, bias_k,
                                                    kernels, deferred)
+        args = (hidden, self.cross_ln.scale, self.cross_attn.q.kernel,
+                self.cross_attn.o.kernel, static_kv["ck2"], static_kv["cv2"],
+                enc_bias, self.ffn_ln.scale, self.ffn_wi.kernel, self.ffn_wo.kernel)
+        if self.cross_attn.o.tp or self.ffn_wo.tp:  # sharded: parity mode only
+            return t5_step.cross_ffn_block_plain(
+                *args, heads=self.cross_attn.heads, eps=self.cfg.layer_norm_eps,
+                attn_group=self.cross_attn.o.group, ffn_group=self.ffn_wo.group)
         block = t5_step.cross_ffn_block if kernels else t5_step.cross_ffn_block_plain
-        return block(hidden, self.cross_ln.scale, self.cross_attn.q.kernel,
-                     self.cross_attn.o.kernel, static_kv["ck2"], static_kv["cv2"],
-                     enc_bias, self.ffn_ln.scale, self.ffn_wi.kernel,
-                     self.ffn_wo.kernel, heads=self.cfg.num_heads,
-                     eps=self.cfg.layer_norm_eps)
+        return block(*args, heads=self.cfg.num_heads, eps=self.cfg.layer_norm_eps)
 
 
 class T5EncoderLayer(nn.Module):
@@ -268,11 +290,13 @@ class T5(nn.Module):
         scales when ``kv_int8`` (``t5.py:609-617``); static_kv: per layer
         {"ck2", "cv2"} [batch, K, h*d] cross k/v)."""
         cfg = self.cfg
-        shape = (batch // beam_width, beam_width * max_len, 2 * cfg.num_heads * cfg.d_kv)
+        heads = self.decoder_layers[0].self_attn.heads if len(self.decoder_layers) \
+            else cfg.num_heads  # the rank's heads
+        shape = (batch // beam_width, beam_width * max_len, 2 * heads * cfg.d_kv)
         dev = cond.device
         if kv_int8:
             cache = [{"kv": torch.zeros(shape, dtype=torch.int8, device=dev),
-                      "kvs": torch.zeros((shape[0], 2 * cfg.num_heads, shape[1]),
+                      "kvs": torch.zeros((shape[0], 2 * heads, shape[1]),
                                          dtype=F32, device=dev)}
                      for _ in self.decoder_layers]
         else:

@@ -106,45 +106,56 @@ def attention_ctx_f32(qkv, kmask, seq_len: int, num_heads: int) -> torch.Tensor:
 
 
 def fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
-                                seq_len: int, num_heads: int, eps: float = 1e-12):
+                                seq_len: int, num_heads: int, eps: float = 1e-12,
+                                group=None):
     """Plain PyTorch version, per sequence, with the Pallas body's rounding
-    points (qkv, probabilities and context rounded to x.dtype)."""
+    points (qkv, probabilities and context rounded to x.dtype); with
+    ``group``, the out-projection's f32 product summed over it first."""
     dt = x.dtype
     qkv = (x.to(F32) @ wqkv.to(F32) + bqkv.to(F32)).to(dt)
     ctx = attention_ctx_f32(qkv, kmask, seq_len, num_heads).to(dt)
-    y = x.to(F32) + ctx.to(F32) @ wo.to(F32) + bo.to(F32)
+    y = x.to(F32) + gemm.row_parallel_f32(ctx, wo, group) + bo.to(F32)
     return layer_norm_f32(y, ln_scale, ln_bias, eps).to(dt)
 
 
 def fused_attention_block(x, kmask, wqkv, bqkv, wo, bo, ln_scale, ln_bias,
-                          seq_len: int, num_heads: int, eps: float = 1e-12):
-    """x [B*L, H]; kmask [B*L] f32 additive (0 / -1e9); wqkv [H, 3H];
-    bqkv [3H]; wo [H, H]; bo, ln_scale, ln_bias [H] -> [B*L, H].
+                          seq_len: int, num_heads: int, eps: float = 1e-12, group=None):
+    """x [B*L, H]; kmask [B*L] f32 additive (0 / -1e9); wqkv [H, 3Hl];
+    bqkv [3Hl]; wo [Hl, H]; bo, ln_scale, ln_bias [H] -> [B*L, H], where
+    Hl = H, or under tensor parallelism (``group``, the "model" group) the
+    width of this rank's ``num_heads`` heads: their q|k|v columns and the
+    same rows of the out-projection, whose f32 partials are summed over the
+    group before the LayerNorm (``gemm.residual_gemm_ln``). The output is
+    the same on every rank of the group.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, L <= 128) or raise."""
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, kmask, wqkv, bqkv, wo, bo, ln_scale,
-                                           ln_bias, seq_len, num_heads, eps)
+                                           ln_bias, seq_len, num_heads, eps, group)
     m, h = x.shape
+    hl = wo.shape[0]
     bf = torch.bfloat16
-    for t, name, shape in ((x, "x", (m, h)), (wqkv, "wqkv", (h, 3 * h)),
-                           (bqkv, "bqkv", (3 * h,)), (wo, "wo", (h, h)),
+    for t, name, shape in ((x, "x", (m, h)), (wqkv, "wqkv", (h, 3 * hl)),
+                           (bqkv, "bqkv", (3 * hl,)), (wo, "wo", (hl, h)),
                            (bo, "bo", (h,)), (ln_scale, "ln_scale", (h,)),
                            (ln_bias, "ln_bias", (h,))):
         _build.require(t, name, bf, shape)
     _build.require(kmask, "kmask", F32, (m,))
-    _check_shape("fused_attention_block", m, h, seq_len, num_heads)
-    qkv = torch.empty((m, 3 * h), dtype=bf, device=x.device)
+    _check_shape("fused_attention_block", m, hl, seq_len, num_heads)
+    qkv = torch.empty((m, 3 * hl), dtype=bf, device=x.device)
     gemm.gemm(x, wqkv, bqkv, None, qkv, _build.EPI_BIAS_BF16,
-              gemm.gemm_plan(m, 3 * h, h, gemm.sms_of(x)), "attn_qkv")
+              gemm.gemm_plan(m, 3 * hl, h, gemm.sms_of(x)), "attn_qkv")
     ctx = attention_core(qkv, kmask, seq_len, num_heads)
-    out = gemm.residual_gemm_ln(ctx, wo, bo, x, ln_scale, ln_bias, eps, "attn_out")
+    out = gemm.residual_gemm_ln(ctx, wo, bo, x, ln_scale, ln_bias, eps, "attn_out", group)
     fused_attention_block.launches += 1
+    if group is not None:
+        fused_attention_block.tp_launches += 1
     return out
 
 
 fused_attention_block.launches = 0
+fused_attention_block.tp_launches = 0  # of them, in the tensor-parallel form
 
 
 # ---------------------------------------------------------------------------

@@ -40,23 +40,29 @@ from mmdx_tpu_torch.ops.gemm import layer_norm_f32
 F32 = torch.float32
 
 
-def fused_ffn_ln_plain(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
+def fused_ffn_ln_plain(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12,
+                       group=None):
     """Plain PyTorch version with the Pallas body's rounding points: f32
-    products of the working-dtype operands, GELU output rounded to x.dtype."""
+    products of the working-dtype operands, GELU output rounded to x.dtype;
+    with ``group``, the second product's f32 partials summed over it."""
     dt = x.dtype
     mid = x.to(F32) @ wi.to(F32) + bi.to(F32)
     mid = F.gelu(mid).to(dt)
-    y = mid.to(F32) @ wo.to(F32) + bo.to(F32) + x.to(F32)
+    y = gemm.row_parallel_f32(mid, wo, group) + bo.to(F32) + x.to(F32)
     return layer_norm_f32(y, ln_scale, ln_bias, eps).to(dt)
 
 
-def fused_ffn_ln(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
-    """x [M, H]; wi [H, F]; bi [F]; wo [F, H]; bo, ln_scale, ln_bias [H].
+def fused_ffn_ln(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12, group=None):
+    """x [M, H]; wi [H, F]; bi [F]; wo [F, H]; bo, ln_scale, ln_bias [H],
+    where under tensor parallelism (``group``, the "model" group) F is this
+    rank's share of the intermediate: its columns of ``wi`` and rows of
+    ``wo``, whose f32 partials are summed over the group before the
+    LayerNorm (``gemm.residual_gemm_ln``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 only) or raise."""
     if x.device.type == "cpu":
-        return fused_ffn_ln_plain(x, wi, bi, wo, bo, ln_scale, ln_bias, eps)
+        return fused_ffn_ln_plain(x, wi, bi, wo, bo, ln_scale, ln_bias, eps, group)
     m, h = x.shape
     f = wi.shape[1]
     bf = torch.bfloat16
@@ -69,12 +75,15 @@ def fused_ffn_ln(x, wi, bi, wo, bo, ln_scale, ln_bias, eps: float = 1e-12):
     mid = torch.empty((m, f), dtype=bf, device=x.device)
     gemm.gemm(x, wi, bi, None, mid, _build.EPI_BIAS_GELU_BF16,
               gemm.gemm_plan(m, f, h, gemm.sms_of(x)), "ffn_in")
-    out = gemm.residual_gemm_ln(mid, wo, bo, x, ln_scale, ln_bias, eps, "ffn_out")
+    out = gemm.residual_gemm_ln(mid, wo, bo, x, ln_scale, ln_bias, eps, "ffn_out", group)
     fused_ffn_ln.launches += 1
+    if group is not None:
+        fused_ffn_ln.tp_launches += 1
     return out
 
 
 fused_ffn_ln.launches = 0
+fused_ffn_ln.tp_launches = 0  # of them, in the tensor-parallel form
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 from mmdx_tpu_torch import _build
 
@@ -102,23 +103,43 @@ def layer_norm(y, ln_scale, ln_bias, out, eps: float, name: str, splits: int = 1
         ln_bias.data_ptr(), out.data_ptr(), m, h, eps, _build.stream(y)), name)
 
 
-def residual_gemm_ln(a, w, bias, resid, ln_scale, ln_bias, eps: float, name: str):
+def residual_gemm_ln(a, w, bias, resid, ln_scale, ln_bias, eps: float, name: str,
+                     group=None):
     """``bf16(LN((a @ w + bias) + resid))`` in two launches (CUDA bf16
     tensors, checked by the caller): the GEMM, split over K by the plan,
-    writing f32 rows or partials, then the LayerNorm kernel."""
+    writing f32 rows or partials, then the LayerNorm kernel.
+
+    With ``group`` (the row-parallel product that ends a tensor-parallel
+    block: ``a``'s columns and ``w``'s rows are this rank's share of K) the
+    GEMM always writes f32 partials ``[splits, M, H]``, one ``all_reduce``
+    of the whole buffer sums them over the group, and the LayerNorm kernel
+    adds the bias and the residual to the sum: split-K across ranks. Every
+    rank of the group takes the same plan, so the buffers line up."""
     m, k = a.shape
     h = w.shape[1]
     plan = gemm_plan(m, h, k, sms_of(a), split=True)
     splits = plan[3]
     y = torch.empty((splits, m, h), dtype=F32, device=a.device)
     out = torch.empty_like(resid)
-    if splits == 1:
+    if splits == 1 and group is None:
         gemm(a, w, bias, resid, y, _build.EPI_BIAS_RESID_F32, plan, name)
         layer_norm(y, ln_scale, ln_bias, out, eps, name + "_ln")
     else:
         gemm(a, w, None, None, y, _build.EPI_PARTIAL_F32, plan, name)
+        if group is not None:
+            dist.all_reduce(y, group=group)
         layer_norm(y, ln_scale, ln_bias, out, eps, name + "_ln", splits, bias, resid)
     return out
+
+
+def row_parallel_f32(a, w, group=None) -> torch.Tensor:
+    """Plain f32 ``a @ w``; with ``group``, this rank's share of K summed
+    over the group by ``all_reduce`` (the plain form of a row-parallel
+    product)."""
+    y = a.to(F32) @ w.to(F32)
+    if group is not None:
+        dist.all_reduce(y, group=group)
+    return y
 
 
 def layer_norm_f32(y: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from mmdx_tpu_torch import _build
+from mmdx_tpu_torch.ops.gemm import row_parallel_f32
 
 F32 = torch.float32
 
@@ -45,15 +46,21 @@ def rms_norm(x, scale, eps: float):
 
 
 def cross_ffn_block_plain(hidden, cross_ln_scale, wq, wo_c, ck, cv, enc_bias,
-                          ffn_ln_scale, wi, wo_f, heads: int, eps: float = 1e-6):
-    """Plain PyTorch version with the Pallas body's rounding points."""
-    dt = hidden.dtype
-    n, dm = hidden.shape
-    kk = ck.shape[1]
-    d = dm // heads
+                          ffn_ln_scale, wi, wo_f, heads: int, eps: float = 1e-6,
+                          attn_group=None, ffn_group=None):
+    """Plain PyTorch version with the Pallas body's rounding points.
 
-    def dot(a, w):
-        return (a.to(F32) @ w.to(F32)).to(dt)
+    Under tensor parallelism (parity mode) a rank passes its ``heads``
+    (their columns of ``wq``, ck, cv and rows of ``wo_c``) with
+    ``attn_group``, and its columns of ``wi`` and rows of ``wo_f`` with
+    ``ffn_group``: each row-parallel product's f32 partial is summed over
+    the group by ``all_reduce`` before its rounding point."""
+    dt = hidden.dtype
+    n, kk = hidden.shape[0], ck.shape[1]
+    d = wq.shape[1] // heads
+
+    def dot(a, w, group=None):
+        return row_parallel_f32(a, w, group).to(dt)
 
     y = rms_norm(hidden, cross_ln_scale, eps)
     q = dot(y, wq).reshape(n, heads, d).to(F32)
@@ -63,10 +70,10 @@ def cross_ffn_block_plain(hidden, cross_ln_scale, wq, wo_c, ck, cv, enc_bias,
     p = (e / e.sum(-1, keepdim=True)).to(dt)
     ctx = torch.einsum("nhk,nkhd->nhd", p.to(F32),
                        cv.reshape(n, kk, heads, d).to(F32)).to(dt)
-    x = (hidden.to(F32) + dot(ctx.reshape(n, dm), wo_c).to(F32)).to(dt)
+    x = (hidden.to(F32) + dot(ctx.reshape(n, heads * d), wo_c, attn_group).to(F32)).to(dt)
     y = rms_norm(x, ffn_ln_scale, eps)
     hmid = dot(y, wi).clamp_min(0)
-    return (x.to(F32) + dot(hmid, wo_f).to(F32)).to(dt)
+    return (x.to(F32) + dot(hmid, wo_f, ffn_group).to(F32)).to(dt)
 
 
 SPLIT_CAP = 16  # K-splits per product: more would only add partials to sum

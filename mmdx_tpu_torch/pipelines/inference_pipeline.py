@@ -76,9 +76,11 @@ def clear_model_bundle() -> None:
 
 def get_engine(model_bundle: TorchBundle, mode: str = "parity",
                mesh=None, device=None) -> InferenceEngine:
-    """Engine per (bundle object, mode, device), LRU-bounded and lock-guarded;
-    ``device`` None is the first CUDA card."""
-    key = (id(model_bundle), mode, None if device is None else str(device))
+    """Engine per (bundle object, mode, mesh, device), LRU-bounded and
+    lock-guarded; ``device`` None is the first CUDA card (the rank's card
+    under a ``mesh``)."""
+    key = (id(model_bundle), mode, None if mesh is None else id(mesh),
+           None if device is None else str(device))
     with _LOCK:
         if key in _ENGINES:
             _ENGINES[key] = _ENGINES.pop(key)
@@ -92,12 +94,12 @@ def get_engine(model_bundle: TorchBundle, mode: str = "parity",
 
 
 def inference(model_bundle: TorchBundle, image_pil, patient_details: str,
-              device=None, gen_kwargs: dict | None = None) -> dict:
+              device=None, gen_kwargs: dict | None = None, mesh=None) -> dict:
     """The reference-compatible ``inference()``
     (``mmdx_tpu/pipelines/inference_pipeline.py:102-110``): one image (PIL
     image, encoded bytes or uint8 array) and its patient details through the
     parity engine of ``get_engine`` -> {report_text, disease_probs,
     disease_vector, model_version}. ``device`` places the engine (None: the
-    first CUDA card)."""
-    engine = get_engine(model_bundle, device=device)
+    first CUDA card); under a ``mesh`` every rank calls it alike."""
+    engine = get_engine(model_bundle, mesh=mesh, device=device)
     return engine.infer(image_pil, patient_details, gen_kwargs=gen_kwargs)

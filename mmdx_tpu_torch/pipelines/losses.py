@@ -16,23 +16,30 @@ IGNORE_INDEX = -100
 F32 = torch.float32
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    count: int | None = None) -> torch.Tensor:
     """Numerically stable mean binary cross-entropy with logits:
-    max(x, 0) - x*y + log(1 + exp(-|x|))."""
+    max(x, 0) - x*y + log(1 + exp(-|x|)). With ``count`` the sum over it
+    instead: a data rank's part of the mean over the whole batch."""
     x, y = logits.to(F32), targets.to(F32)
-    return (x.clamp_min(0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()
+    loss = x.clamp_min(0) - x * y + torch.log1p(torch.exp(-x.abs()))
+    return loss.mean() if count is None else loss.sum() / count
 
 
-def t5_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def t5_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                     valid_count: torch.Tensor | None = None) -> torch.Tensor:
     """Token-level CE averaged over labels != -100; logits [B, L, V], labels
-    [B, L]."""
+    [B, L]. ``valid_count`` replaces the divisor (the whole batch's count of
+    valid labels, for a data rank's part)."""
     logits = logits.to(F32)
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid.to(F32)
-    return nll.sum() / valid.to(F32).sum().clamp_min(1.0)
+    if valid_count is None:
+        valid_count = valid.to(F32).sum().clamp_min(1.0)
+    return nll.sum() / valid_count
 
 
 def fusion_loss(disease_logits, disease_targets, report_logits=None, report_labels=None,

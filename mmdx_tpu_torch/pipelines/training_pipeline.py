@@ -98,11 +98,23 @@ def build_fusion_optimizer(model: torch.nn.Module, lr_heads: float = 5e-4,
     ], weight_decay)
 
 
-def clip_by_global_norm(params: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: list, max_norm: float, sharded=frozenset(),
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm: when the global norm of the gradients is
     at least ``max_norm``, every gradient becomes g / norm * max_norm (not
-    ``clip_grad_norm_``'s max / (norm + 1e-6)). -> the norm before."""
-    norm = torch.sqrt(sum((p.grad.to(torch.float32) ** 2).sum() for p in params))
+    ``clip_grad_norm_``'s max / (norm + 1e-6)). Under tensor parallelism
+    ``sharded`` holds the ids of the parameters each model rank holds a
+    slice of: their squares are summed over ``group`` ("model") and the
+    replicated ones count once, so the norm is the whole logical model's.
+    -> the norm before."""
+    wide = torch.promote_types(params[0].grad.dtype, torch.float32)
+    norm2 = sum((p.grad.to(wide) ** 2).sum() for p in params if id(p) not in sharded)
+    if sharded:
+        from mmdx_tpu_torch.parallel.sharding import all_reduce_
+
+        part = sum((p.grad.to(wide) ** 2).sum() for p in params if id(p) in sharded)
+        norm2 = norm2 + (part if group is None else all_reduce_(part.clone(), group))
+    norm = torch.sqrt(norm2)
     clip = norm >= max_norm
     for p in params:
         p.grad.copy_(torch.where(clip, p.grad / norm.to(p.grad.dtype) * max_norm, p.grad))

@@ -32,10 +32,20 @@ The contracts, from the wrappers:
 
 The int8 GEMM (K5) runs the ResNet-50 tower, whose widths no configuration
 changes.
+
+Under tensor parallelism (an engine on a mesh of model degree tp > 1) K1 and
+K2 run their tensor-parallel form on the rank's shard: its heads must be
+64 wide (so the heads divide over the ranks) and its share of the
+intermediate width must be in 64s. A width the rules' divisibility check
+sends to replication runs whole and is not refused. ``tp_plan`` names
+the layers that stay whole on every model rank.
 """
 from __future__ import annotations
 
+import re
+
 from mmdx_tpu_torch.config import DiagnosisConfig
+from mmdx_tpu_torch.parallel.sharding import spec_for_path
 
 HEAD = 64  # the attention kernels' head width
 
@@ -54,13 +64,36 @@ def _texts_lengths(config: DiagnosisConfig) -> list[int]:
     return sorted(set(bucket_ladder(max_len)) | {max_len})
 
 
+def tp_plan(specs: dict, mode: str, *, text_int8: bool = False) -> tuple[dict, list[str]]:
+    """What an engine of ``mode`` shards at model degree > 1, from the rules'
+    specs of its model's kernels (JAX path -> spec,
+    ``parallel.sharding.dense_specs``) -> (the specs it applies, the layers
+    that stay whole on every model rank, each with the reason). The layers
+    whose kernels cannot take a shard stay whole; so does a kernel whose
+    width the rules' divisibility check replicates."""
+    kept = {"image_encoder/": "image tower (ResNet-50: replicated by the rules)"}
+    if text_int8:
+        kept["text_encoder/"] = ("text encoder's W8A8 blocks (K6 and K7 row-quantize an "
+                                 "intermediate whose per-row amax spans the whole width)")
+    if mode != "parity":
+        kept["fusion/report_model/"] = (
+            "T5 decoder (K4 holds both of a half step's row-parallel products in one "
+            "cooperative launch; K3, rows 5-7 and the lm head read its whole heads)")
+    prefixes = tuple(kept)
+    applied = {p: () if p.startswith(prefixes) else s for p, s in specs.items()}
+    replicated = sorted({re.sub(r"layer\d+", "layer*", p) for p, s in applied.items()
+                         if not s and spec_for_path(p) and not p.startswith(prefixes)})
+    return applied, list(kept.values()) + [
+        f"{p} (its width does not divide over the model ranks)" for p in replicated]
+
+
 def first_unmet_contract(config: DiagnosisConfig, mode: str, *, text_int8: bool = False,
                          kv_int8: bool = False, fused_lm_head: bool = False,
-                         int8_fused_blocks=()) -> str | None:
+                         int8_fused_blocks=(), tp: int = 1) -> str | None:
     """The first contract that the kernels ``mode`` and the switches enable
-    do not meet under ``config`` (as the engine runs it), as a message that
-    names the layer, the kernel and the switch; None if every one is met or
-    the mode runs no kernel (parity)."""
+    do not meet under ``config`` (as the engine runs it) at model degree
+    ``tp``, as a message that names the layer, the kernel and the switch;
+    None if every one is met or the mode runs no kernel (parity)."""
     if mode not in ("fast", "turbo"):
         return None
     text, rep, img = config.text, config.report, config.image
@@ -68,6 +101,18 @@ def first_unmet_contract(config: DiagnosisConfig, mode: str, *, text_int8: bool 
 
     def unmet(layer, kernel, switch, why):
         return f"{layer}: {kernel} ({switch}) needs {why}"
+
+    if tp > 1 and not text_int8:
+        h, heads, f = text.hidden_size, text.num_heads, text.intermediate_size
+        layers = f"text encoder, {text.num_layers} layers, model degree {tp}"
+        if h % tp == 0 and heads % tp:
+            return unmet(layers, "K1's tensor-parallel form (ops/bert_attn.py)",
+                         f"{mode} mode, mesh", f"the rank's heads 64 wide, got width "
+                         f"{h} over {heads} heads split {tp} ways")
+        if f % tp == 0 and (f // tp) % 64:
+            return unmet(layers, "K2's tensor-parallel form (ops/fused_ffn.py)",
+                         f"{mode} mode, mesh", f"the rank's intermediate width in 64s, "
+                         f"got {f} / {tp} = {f // tp}")
 
     # the text tower
     int8_text = "turbo mode / MMDX_TEXT_INT8" if text_int8 else f"{mode} mode"

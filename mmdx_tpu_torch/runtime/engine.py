@@ -52,8 +52,28 @@ Parity mode and CPU engines run the plain versions and are never refused.
 
 ``MMDX_GREEDY_FLAT`` and ``MMDX_DECODE_SEGMENTS`` are TPU layout knobs and
 are not ported: greedy always runs over the flat cache at nb = 1, and the
-cache is one full-length buffer. Multi-device serving is not ported yet
-(ROADMAP Queue 1).
+cache is one full-length buffer.
+
+Multi-device (``mesh=``, a ("data", "model") DeviceMesh from
+``parallel.mesh.make_mesh``): every rank builds the engine and calls each
+entry point with the same arguments. Each data rank decodes, tokenizes and
+runs only its own rows of the batch, padded to a multiple of the data degree
+by repeating row 0 as the JAX engine pads (``engine.py:197-213``; fast
+mode's token bucket is the whole batch's, by an ``all_reduce`` of the
+longest text, and turbo's first-batch scales are the maximum over the data
+ranks); the outputs are put together on every rank by ``all_reduce`` and
+un-padded. The decode loop runs on each data rank's rows with no collective
+between data ranks (``engine.py:628-633``). Over "model" the weights are
+sharded by ``parallel/sharding.py``'s rules: in parity mode every rule
+applies; in fast and turbo mode the text tower's blocks run K1 and K2 in
+their tensor-parallel form, while the T5 decoder (K4 holds both of a half
+step's row-parallel products in one cooperative launch; K3, rows 5-7 and
+the lm head read its whole heads) and turbo's W8A8 text blocks (K6, K7
+row-quantize over the whole width) stay whole on every model rank
+(``runtime/contracts.tp_plan``, printed at construction). The image
+tower is replicated, as the rules have it. Model ranks must take the same
+beam choices: selection reads inputs an ``all_reduce`` made identical, and
+the engine checks that the ids agree over "model".
 """
 from __future__ import annotations
 
@@ -71,7 +91,7 @@ from mmdx_tpu_torch.decode.beam_search import (beam_expand, beam_search,
                                                make_generation_kwargs)
 from mmdx_tpu_torch.decode.greedy import greedy_decode
 from mmdx_tpu_torch.models import resnet_int8 as ri
-from mmdx_tpu_torch.runtime.contracts import check_kernel_contracts
+from mmdx_tpu_torch.runtime.contracts import check_kernel_contracts, tp_plan
 from mmdx_tpu_torch.ops.preprocess import (preprocess_batch_device,
                                            preprocess_batch_device_gray,
                                            preprocess_exact)
@@ -122,10 +142,16 @@ class InferenceEngine:
                  canonical_size: int = 512, device=None, mesh=None):
         if mode not in ("parity", "fast", "turbo"):
             raise ValueError(f"unknown engine mode {mode!r}")
+        self.mesh, self.layout = mesh, None
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet: ROADMAP Queue 1, "
-                "'Multi-device'")
+            from mmdx_tpu_torch.parallel.mesh import layout, rank_device
+
+            if not torch.distributed.is_initialized():
+                raise RuntimeError("a mesh needs a process group on every rank: build it "
+                                   "with parallel.mesh.init_world and make_mesh (or run "
+                                   "under torchrun or parallel.mesh.launch)")
+            self.layout = layout(mesh)
+            device = rank_device(device)
         self.bundle = bundle
         self.mode = mode
         self.kernels = mode in ("fast", "turbo")
@@ -152,11 +178,25 @@ class InferenceEngine:
             cfg = dataclasses.replace(
                 cfg, text=dataclasses.replace(cfg.text, use_flash_attention=True),
                 image=dataclasses.replace(cfg.image, use_folded_bn=True))
+        tp = self.layout.tp if self.layout else 1
         if self.kernels and self.device.type == "cuda":
             check_kernel_contracts(cfg, mode, text_int8=self.text_int8, kv_int8=self.kv_int8,
                                    fused_lm_head=self.fused_lm_head,
-                                   int8_fused_blocks=self.int8_fused_blocks)
+                                   int8_fused_blocks=self.int8_fused_blocks, tp=tp)
         model = bundle.model.with_config(cfg)
+        self.whole_under_tp = []
+        if tp > 1:
+            from mmdx_tpu_torch.parallel.sharding import dense_specs, model_shard, shard_model_
+
+            specs, self.whole_under_tp = tp_plan(dense_specs(model, tp), mode,
+                                                 text_int8=self.text_int8)
+            shard_model_(model, specs, model_shard(mesh))
+        if self.layout is not None and torch.distributed.get_rank() == 0:
+            lay = self.layout
+            print(f"[mmdx] mesh: data {lay.dp} x model {lay.tp} "
+                  f"({torch.distributed.get_backend()}), {mode} mode; whole on every "
+                  "model rank: " + ("; ".join(self.whole_under_tp) or "(tp 1: every layer)"),
+                  file=sys.stderr, flush=True)
         if mode == "turbo":
             # turbo never runs the bf16 backbone (the int8 tower folds from
             # bundle.model), so it stays off the card
@@ -210,11 +250,17 @@ class InferenceEngine:
 
     def prep_texts(self, texts: list[str], fixed_len: bool = False) -> dict[str, np.ndarray]:
         """Tokenize to max_len (parity); fast mode pads to the smallest
-        bucket covering the batch unless ``fixed_len``."""
+        bucket covering the batch unless ``fixed_len`` (under a mesh, the
+        longest text of every data rank's rows)."""
         max_len = self.bundle.config.text.max_len
         enc = self.bert_tok.encode_batch(texts, max_len=max_len)
         if self.mode != "parity" and not fixed_len:
             longest = int(enc["attention_mask"].sum(axis=1).max(initial=1))
+            if self.layout is not None and self.layout.dp > 1:
+                t = torch.tensor([longest], device=self.device)
+                torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
+                                             group=self.layout.data_group)
+                longest = int(t.item())
             for bucket in bucket_ladder(max_len):
                 if bucket >= longest:
                     return {k: v[:, :bucket] for k, v in enc.items()}
@@ -226,6 +272,31 @@ class InferenceEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    # ------------------------------------------------------------------
+    # the data axis of a mesh
+    # ------------------------------------------------------------------
+    def _my_rows(self, n: int) -> tuple[list[int], int]:
+        """-> (the indices into an ``n``-row batch of this data rank's rows
+        after padding to a multiple of the data degree by repeating row 0,
+        the padded size). Without a mesh: every row."""
+        if self.layout is None or self.layout.dp == 1:
+            return list(range(n)), n
+        from mmdx_tpu_torch.parallel.mesh import rows_of
+
+        padded, rows = rows_of(n, self.layout.dp, self.layout.data_rank)
+        return (list(range(n)) + [0] * (padded - n))[rows], padded
+
+    def _gather(self, t: torch.Tensor, padded: int) -> torch.Tensor:
+        """This data rank's rows of a ``padded``-row output -> every row, on
+        every rank (a zero-filled buffer summed over "data")."""
+        if self.layout is None or self.layout.dp == 1:
+            return t
+        from mmdx_tpu_torch.parallel.mesh import rows_of
+        from mmdx_tpu_torch.parallel.sharding import gather_rows
+
+        _, rows = rows_of(padded, self.layout.dp, self.layout.data_rank)
+        return gather_rows(t, padded, rows, self.layout.data_group)
+
     def classify_batch(self, images, texts: list[str], pad_to: int | None = None,
                        host_outputs: bool = False):
         """-> (probs [B, 13] np.float32, z_img, z_txt).
@@ -234,23 +305,26 @@ class InferenceEngine:
         tokenization, as the bucketed serving path does; ``host_outputs``
         returns z_img/z_txt as numpy f32 (the micro-batcher asks for that);
         otherwise they stay tensors on the device."""
-        imgs = self.prep_images(images)
-        tok = self.prep_texts(texts, fixed_len=pad_to is not None)
-        n0 = int(imgs.shape[0])
-        ids, mask, tt = tok["input_ids"], tok["attention_mask"], tok["token_type_ids"]
-        if pad_to is not None and pad_to > n0:
-            k = pad_to - n0
-
-            def _pad(a):
-                return np.concatenate([a, np.repeat(a[-1:], k, axis=0)])
-
-            imgs, ids, mask, tt = _pad(imgs), _pad(ids), _pad(mask), _pad(tt)
-        tokens = (self._tensor(ids).long(), self._tensor(mask).long(),
-                  self._tensor(tt).long())
+        images, texts = list(images), list(texts)
+        n0 = len(images)
+        # pad_to repeats the last row; the rows this (data) rank runs, each
+        # decoded and tokenized once
+        rows = list(range(n0)) + [n0 - 1] * max(0, (pad_to or 0) - n0)
+        mine, padded = self._my_rows(len(rows))
+        sel = [rows[i] for i in mine]
+        uniq = sorted(set(sel))
+        pos = {j: i for i, j in enumerate(uniq)}
+        take = [pos[j] for j in sel]
+        imgs = self.prep_images([images[j] for j in uniq])
+        tok = self.prep_texts([texts[j] for j in uniq], fixed_len=pad_to is not None)
+        if take != list(range(len(uniq))):
+            imgs, tok = imgs[take], {k: v[take] for k, v in tok.items()}
+        tokens = tuple(self._tensor(tok[k]).long()
+                       for k in ("input_ids", "attention_mask", "token_type_ids"))
         with torch.inference_mode():
-            probs, z_img, z_txt = self.model.classify(
+            probs, z_img, z_txt = (self._gather(t, padded) for t in self.model.classify(
                 self._image_embeddings(imgs), *tokens, kernels=self.kernels,
-                int8=self.text_int8)
+                int8=self.text_int8))
         probs = probs.cpu().numpy()[:n0]
         z_img, z_txt = z_img[:n0], z_txt[:n0]
         if host_outputs:  # numpy f32 (exact for bf16), as the batcher concatenates
@@ -288,22 +362,27 @@ class InferenceEngine:
         """Single modality: images -> the image tower's warm-up classifier
         probabilities [B, 13] f32 (BASELINE config 1, image-only CNN
         classification; ``mmdx_tpu/runtime/engine.py:562``)."""
-        z_img = self._image_embeddings(self.prep_images(images))
+        images = list(images)
+        mine, padded = self._my_rows(len(images))
+        z_img = self._image_embeddings(self.prep_images([images[i] for i in mine]))
         with torch.inference_mode():
-            return self.model.image_encoder.classify(z_img).cpu().numpy()
+            probs = self._gather(self.model.image_encoder.classify(z_img), padded)
+        return probs.cpu().numpy()[:len(images)]
 
     def classify_text_batch(self, texts: list[str]) -> np.ndarray:
         """Single modality: free text -> the text tower's warm-up classifier
         probabilities [B, 13] f32 (BASELINE config 2, report-only text
         classification; ``mmdx_tpu/runtime/engine.py:570``); in fast and
         turbo mode the tower runs its kernels (K1, K2; K6, K7 in W8A8)."""
-        tok = self.prep_texts(texts)
+        mine, padded = self._my_rows(len(texts))
+        tok = self.prep_texts([texts[i] for i in mine])
         ids, mask, tt = (self._tensor(tok[k]).long()
                          for k in ("input_ids", "attention_mask", "token_type_ids"))
         with torch.inference_mode():
             z_txt = self.model.text_encoder.encode(ids, mask, tt, self.kernels,
                                                    self.text_int8)
-            return self.model.text_encoder.classify(z_txt).cpu().numpy()
+            probs = self._gather(self.model.text_encoder.classify(z_txt), padded)
+        return probs.cpu().numpy()[:len(texts)]
 
     def _ensure_qparams(self, images=None) -> dict:
         """The int8 tower's qparams, built once per engine (turbo mode).
@@ -333,6 +412,14 @@ class InferenceEngine:
                 x = preprocess_batch_device(x, cfg.img_size, cfg.resize_size,
                                             cfg.mean, cfg.std, out_dtype=torch.float32)
             scales = ri.calibrate_backbone(folded, x)
+            if self.layout is not None and self.layout.dp > 1:
+                # the whole batch's amax: the largest over the data ranks' rows
+                sites = sorted(scales)
+                amax = torch.tensor([scales[k] for k in sites], dtype=torch.float64,
+                                    device=self.device)
+                torch.distributed.all_reduce(amax, torch.distributed.ReduceOp.MAX,
+                                             group=self.layout.data_group)
+                scales = dict(zip(sites, amax.tolist()))
         with torch.inference_mode():
             self._qparams = ri.quantize_backbone(folded, scales, cfg.mean, cfg.std,
                                                  cfg.img_size)
@@ -348,8 +435,14 @@ class InferenceEngine:
         leading decoder_start, pad/eos fill past the finish), beam search or
         greedy over the flat cache at nb = 1."""
         gen = gen or self.bundle.config.generation
-        z_img = torch.as_tensor(z_img).to(self.device, self.dtype)
-        z_txt = torch.as_tensor(z_txt).to(self.device, self.dtype)
+        n = int(z_img.shape[0])
+        mine, padded = self._my_rows(n)
+        z_img, z_txt = torch.as_tensor(z_img), torch.as_tensor(z_txt)
+        if self.layout is not None and self.layout.dp > 1:  # this data rank's rows
+            rows = torch.as_tensor(mine)
+            z_img, z_txt = z_img[rows.to(z_img.device)], z_txt[rows.to(z_txt.device)]
+        z_img = z_img.to(self.device, self.dtype)
+        z_txt = z_txt.to(self.device, self.dtype)
         b, nb = int(z_img.shape[0]), 1 if greedy else gen.num_beams
         lmax = 1 + gen.max_new_tokens
         prep = self.model.prepare_generation(beam_expand(z_img, nb),
@@ -375,7 +468,22 @@ class InferenceEngine:
         else:
             seqs, _ = beam_search(step, batch=b, vocab_size=vocab, device=self.device,
                                   **kw)
+        if self.layout is not None:
+            seqs = self._gather(seqs, padded)[:n]
+            if self.layout.tp > 1:
+                self._check_model_ranks_agree(seqs)
         return seqs.cpu().numpy()
+
+    def _check_model_ranks_agree(self, ids: torch.Tensor) -> None:
+        """Every model rank chose the same ids (their selections read inputs
+        that an ``all_reduce`` made identical); raise otherwise."""
+        dist = torch.distributed
+        lo, hi = ids.clone(), ids.clone()
+        dist.all_reduce(lo, dist.ReduceOp.MIN, group=self.layout.model_group)
+        dist.all_reduce(hi, dist.ReduceOp.MAX, group=self.layout.model_group)
+        if not torch.equal(lo, hi):
+            rows = sorted({int(r) for r in torch.nonzero(lo != hi)[:, 0].tolist()})
+            raise RuntimeError(f"model ranks chose different report ids in rows {rows}")
 
     def generate_reports(self, z_img, z_txt, gen: GenerationConfig | None = None,
                          greedy: bool = False) -> list[str]:

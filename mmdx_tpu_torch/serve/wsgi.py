@@ -5,11 +5,17 @@ Port of ``mmdx_tpu/serve/wsgi.py``: the JAX package's app with its imports
 pointed at the port's own copies (micro-batcher, multipart parser, image
 decode), ``_engine`` building the port's engine on ``device`` (the first CUDA
 card unless the app is made with, say, ``device="cpu"``), and static files
-contained with ``Path.is_relative_to``. Multi-device serving
-(``MMDX_SERVE_MESH``, ``mesh=``) is not ported and raises. The frontend and
-the sample assets are read from the JAX package's data directories.
+contained with ``Path.is_relative_to``. The frontend and the sample assets
+are read from the JAX package's data directories.
 
     python -m mmdx_tpu_torch.serve.wsgi
+    MMDX_SERVE_MESH=<tp> torchrun --nproc-per-node N -m mmdx_tpu_torch.serve.wsgi
+
+Multi-device serving (``mesh=``, or ``MMDX_SERVE_MESH=<tp>`` under a
+launcher, ``serve/mesh_serving.py``): every rank builds the engine on a
+("data", "model") mesh of model degree tp; rank 0 binds the port and runs
+the batcher, each batch's engine calls broadcast to the other ranks, which
+follow until rank 0 stops. ``MMDX_SERVE_MESH`` outside a launcher raises.
 
 Routes and JSON contracts mirror the reference exactly so its React frontend
 swaps in unchanged (reference ``backend/api/urls.py:6-10``, ``views.py``):
@@ -56,11 +62,12 @@ class DiagnosisApp:
         self._bundle = bundle
         self.engine_mode = engine_mode
         self.device = device
-        # multi-chip serving: a jax.sharding.Mesh (or MMDX_SERVE_MESH=<tp>,
-        # which builds a ("data","model") mesh over all devices with that
-        # tensor-parallel degree) dp-shards every classify/generate batch;
-        # the reference serves strictly single-device
+        # multi-device serving: a ("data", "model") DeviceMesh on every rank
+        # (or MMDX_SERVE_MESH=<tp> under a launcher, which builds one with
+        # that tensor-parallel degree); this app is rank 0's, the reference
+        # serves strictly single-device
         self.mesh = mesh
+        self._leader = None
         self.generate_reports = generate_reports
         self.gen_overrides = gen_overrides
         self.greedy = greedy
@@ -181,12 +188,31 @@ class DiagnosisApp:
         from mmdx_tpu_torch.pipelines.inference_pipeline import (get_engine,
                                                                   get_model_bundle)
 
-        if self.mesh is not None or os.getenv("MMDX_SERVE_MESH", "") not in ("", "0"):
-            raise NotImplementedError("multi-device serving (MMDX_SERVE_MESH) is not "
-                                      "ported to PyTorch yet")
+        from mmdx_tpu_torch.serve import mesh_serving
+
+        if self.mesh is None:
+            self.mesh = mesh_serving.serve_mesh_from_env(self.device)
         if self._bundle is None:
             self._bundle = get_model_bundle()
-        return get_engine(self._bundle, mode=self.engine_mode, device=self.device)
+        engine = get_engine(self._bundle, mode=self.engine_mode, mesh=self.mesh,
+                            device=self.device)
+        if self.mesh is None:
+            return engine
+        import torch.distributed as dist
+
+        self._leader = mesh_serving.MeshLeader(engine, mesh_serving.control_group())
+        print(f"[mmdx] mesh serving: rank 0 serves, {dist.get_world_size() - 1} "
+              "rank(s) follow", flush=True)
+        return self._leader
+
+    def close(self) -> None:
+        """Drain and stop the batcher; on a mesh, release the following
+        ranks."""
+        if self._batcher is not None:
+            self._batcher.stop(drain=True)
+        if self._leader is not None:
+            self._leader.stop()
+            self._leader = None
 
     def _get_batcher(self):
         """Concurrent requests fuse into one device batch (double-checked
@@ -486,12 +512,30 @@ def main():
 
     SIGTERM/SIGINT drain the batcher (in-flight requests complete) before
     the process exits.
+
+    MMDX_SERVE_MESH=<tp> under torchrun: every rank builds the engine on a
+    mesh of model degree tp; rank 0 serves and the others follow it. A
+    follower whose engine call fails exits with the error, and torchrun
+    stops the other ranks.
     """
     import signal
     import threading
 
+    from mmdx_tpu_torch.serve import mesh_serving
+
     port = int(os.getenv("PORT", "8000"))
+    mesh = mesh_serving.serve_mesh_from_env()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            calls = mesh_serving.follower(None, os.getenv("MMDX_ENGINE_MODE", "parity"),
+                                          mesh)
+            print(f"[mmdx] rank {dist.get_rank()}: stopped after {calls} engine calls",
+                  flush=True)
+            return
     app = make_app(
+        mesh=mesh,
         engine_mode=os.getenv("MMDX_ENGINE_MODE", "parity"),
         generate_reports=os.getenv("MMDX_GENERATE", "1") == "1",
         greedy=os.getenv("MMDX_GEN_MODE", "beam") == "greedy",
@@ -521,8 +565,7 @@ def main():
     try:
         server.serve_forever()
     finally:
-        if app._batcher is not None:
-            app._batcher.stop(drain=True)
+        app.close()
 
 
 if __name__ == "__main__":

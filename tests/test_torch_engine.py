@@ -106,12 +106,13 @@ def test_reference_bundle_pt_loads_like_the_bridge(bundles, port_parity, tmp_pat
 
 def test_unported_modes_raise(bundles):
     """Turbo is ported (it builds on the CPU, W8A8 text blocks on); a mesh
-    still raises."""
+    is ported too, and needs a process group (tests/test_torch_parallel.py
+    runs the engine on meshes of spawned ranks)."""
     from mmdx_tpu_torch.runtime.engine import InferenceEngine
 
     turbo = InferenceEngine(bundles[1], mode="turbo", device="cpu")
     assert turbo.kernels and turbo.text_int8 and turbo.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         InferenceEngine(bundles[1], mode="fast", device="cpu", mesh=object())
 
 

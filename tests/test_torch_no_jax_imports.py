@@ -13,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "mmdx_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [ROOT / "scripts" / f"{name}.py" for name in (
         "profile_torch_port", "bench_decode_kernels", "ablate_gemm", "ptxas_report",
-        "profiler_windows")]
+        "profiler_windows")] + [ROOT / "tests" / "torch_oracles" / "parallel_ranks.py"]
 FORBIDDEN = ("jax", "flax", "optax", "mmdx_tpu")
 
 
